@@ -1,0 +1,79 @@
+"""Dispatchers for the four kernels, the query-table builders, and the
+sweep the engine's ``pairwise=`` hook takes.
+
+Each dispatcher is the kernel's wrapper: a CUDA tensor launches the
+hand-written kernel, a CPU tensor runs the plain version in ``ref.py``.
+The kernels mask ragged edges themselves, so no caller pads.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.core.breakpoints import lower_bounds, upper_bounds
+from repro_torch.core.sax import SAX, cell_table
+from repro_torch.core.ssax import SSAX
+from repro_torch.kernels.euclid import euclid_batch  # noqa: F401
+from repro_torch.kernels.paa import paa_segments  # noqa: F401
+from repro_torch.kernels.sax_dist import sax_dist
+from repro_torch.kernels.ssax_dist import ssax_dist
+
+# -inf - -inf would poison the kernel max; clamp to a huge negative
+_BIG = -3.4e38 / 4
+
+
+# -- query-table builders ---------------------------------------------------
+
+def make_sax_query_table(query_syms, breakpoints):
+    """(W,) query symbols -> (W, A) f32 table of squared cell distances."""
+    tab = cell_table(breakpoints.to(query_syms.device))     # (A, A)
+    return tab[query_syms.long()].square().contiguous()     # (W, A)
+
+
+def make_ssax_query_tables(q_seas, q_res, b_seas, b_res):
+    """Query-conditioned (t1, t2, u1, u2) term tables for the sSAX kernel,
+    f32, with infinities clamped to -+3.4e38/4."""
+    dev = q_seas.device
+    lo_s, hi_s = lower_bounds(b_seas.to(dev)), upper_bounds(b_seas.to(dev))
+    lo_r, hi_r = lower_bounds(b_res.to(dev)), upper_bounds(b_res.to(dev))
+    qs, qr = q_seas.long(), q_res.long()
+    t1 = lo_s[qs][:, None] - hi_s[None, :]          # (L, A_seas)
+    t2 = lo_s[None, :] - hi_s[qs][:, None]
+    u1 = lo_r[qr][:, None] - hi_r[None, :]          # (W, A_res)
+    u2 = lo_r[None, :] - hi_r[qr][:, None]
+    return tuple(torch.nan_to_num(t.to(torch.float32), nan=0.0, neginf=_BIG,
+                                  posinf=-_BIG).contiguous()
+                 for t in (t1, t2, u1, u2))
+
+
+# -- the sweep through the kernels ------------------------------------------
+
+def make_pairwise(encoder):
+    """``(rq, rx) -> (Q, N)`` lower bounds for ``MatchEngine(pairwise=)``.
+
+    SAX sweeps through K3 and sSAX through K2, one launch per query, with
+    the encoder's scale and square root applied after; tSAX and stSAX have
+    no sweep kernel and keep their plain ``pairwise_distance``."""
+    if isinstance(encoder, SAX):
+        scale = math.sqrt(encoder.T / encoder.W)
+
+        def sax_pairwise(rq, rx):
+            bp = encoder.breakpoints
+            d2 = torch.stack([sax_dist(rx, make_sax_query_table(q, bp))
+                              for q in rq])
+            return scale * torch.sqrt(d2)
+        return sax_pairwise
+    if isinstance(encoder, SSAX):
+        scale = math.sqrt(encoder.T / (encoder.W * encoder.L))
+
+        def ssax_pairwise(rq, rx):
+            (sq, wq), (sx, wx) = rq, rx
+            bs, br = encoder.b_seas, encoder.b_res
+            d2 = torch.stack([
+                ssax_dist(sx, wx, *make_ssax_query_tables(s, w, bs, br))
+                for s, w in zip(sq, wq)])
+            return scale * torch.sqrt(d2)
+        return ssax_pairwise
+    return encoder.pairwise_distance

@@ -1,0 +1,246 @@
+"""The port's kernels: each plain PyTorch version against the JAX
+package's oracle and its interpret-mode Pallas kernel (CPU), and each
+CUDA kernel against its plain version (skipped without a card).
+
+Tolerances are the JAX package's own (tests/test_kernels.py): sax 1e-5,
+ssax 1e-4, paa 1e-5 (bf16 2e-2), euclid 1e-4 (bf16 5e-2), rtol = atol.
+They cover summation order, which differs between the frameworks and
+between the kernels and their plain versions."""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import KERNELS, ref  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+
+RNG = np.random.default_rng(7)
+TOL = {"sax": 1e-5, "ssax": 1e-4, "paa": 1e-5, "paa_bf16": 2e-2,
+       "euclid": 1e-4, "euclid_bf16": 5e-2}
+
+
+@pytest.fixture(scope="module")
+def jref():
+    """The JAX package's oracles and Pallas kernels (interpret mode)."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from repro.kernels import ref as jax_ref
+    from repro.kernels.euclid import euclid_pallas
+    from repro.kernels.paa import paa_pallas
+    from repro.kernels.sax_dist import sax_dist_pallas
+    from repro.kernels.ssax_dist import ssax_dist_pallas
+
+    class R:
+        pass
+    r = R()
+    r.jnp, r.ref = jnp, jax_ref
+    r.euclid, r.paa, r.sax, r.ssax = (euclid_pallas, paa_pallas,
+                                      sax_dist_pallas, ssax_dist_pallas)
+    return r
+
+
+@pytest.fixture
+def cuda():
+    """The card; the test skips where there is none."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel runs only there")
+    return torch.device("cuda")
+
+
+def _close(a, b, tol):
+    np.testing.assert_allclose(np.asarray(a, np.float32),
+                               np.asarray(b, np.float32), rtol=tol, atol=tol)
+
+
+def _sax_inputs(N, W, A):
+    return (RNG.integers(0, A, size=(N, W)).astype(np.int32),
+            (RNG.normal(size=(W, A)) ** 2).astype(np.float32))
+
+
+def _ssax_inputs(N, L, W, As, Ar):
+    return (RNG.integers(0, As, size=(N, L)).astype(np.int32),
+            RNG.integers(0, Ar, size=(N, W)).astype(np.int32),
+            *(RNG.normal(size=s).astype(np.float32)
+              for s in ((L, As), (L, As), (W, Ar), (W, Ar))))
+
+
+# -- plain versions against the JAX package (CPU) ---------------------------
+
+@pytest.mark.parametrize("N,W,A", [(256, 8, 4), (512, 48, 64),
+                                   (256, 32, 1024), (300, 16, 32)])
+def test_sax_dist_plain_matches_reference(jref, N, W, A):
+    syms, table = _sax_inputs(N, W, A)
+    got = ops.sax_dist(torch.from_numpy(syms), torch.from_numpy(table))
+    _close(got, jref.ref.sax_dist_ref(jref.jnp.asarray(syms),
+                                      jref.jnp.asarray(table)), TOL["sax"])
+    if N % 256 == 0:
+        _close(got, jref.sax(jref.jnp.asarray(syms), jref.jnp.asarray(table),
+                             interpret=True), TOL["sax"])
+
+
+@pytest.mark.parametrize("N,L,W,As,Ar", [(128, 8, 16, 16, 8),
+                                         (128, 10, 48, 64, 32),
+                                         (384, 10, 24, 16, 32)])
+def test_ssax_dist_plain_matches_reference(jref, N, L, W, As, Ar):
+    args = _ssax_inputs(N, L, W, As, Ar)
+    got = ops.ssax_dist(*map(torch.from_numpy, args))
+    jargs = [jref.jnp.asarray(a) for a in args]
+    _close(got, jref.ref.ssax_dist_ref(*jargs), TOL["ssax"])
+    _close(got, jref.ssax(*jargs, interpret=True), TOL["ssax"])
+
+
+@pytest.mark.parametrize("N,T,W", [(128, 512, 32), (256, 960, 48),
+                                   (128, 480, 24)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paa_plain_matches_reference(jref, N, T, W, dtype):
+    x = RNG.normal(size=(N, T)).astype(np.float32)
+    xt = torch.from_numpy(x).to(getattr(torch, dtype))
+    xj = jref.jnp.asarray(x, getattr(jref.jnp, dtype))
+    got = ops.paa_segments(xt, W)
+    assert got.dtype == torch.float32 and got.shape == (N, W)
+    tol = TOL["paa" if dtype == "float32" else "paa_bf16"]
+    _close(got, jref.ref.paa_ref(xj.astype(jref.jnp.float32), W), tol)
+    _close(got, jref.paa(xj, W, interpret=True), tol)
+
+
+@pytest.mark.parametrize("N,T", [(128, 512), (256, 2048)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_euclid_plain_matches_reference(jref, N, T, dtype):
+    x = RNG.normal(size=(N, T)).astype(np.float32)
+    q = RNG.normal(size=(T,)).astype(np.float32)
+    jd = getattr(jref.jnp, dtype)
+    got = ops.euclid_batch(torch.from_numpy(x).to(getattr(torch, dtype)),
+                           torch.from_numpy(q).to(getattr(torch, dtype)))
+    tol = TOL["euclid" if dtype == "float32" else "euclid_bf16"]
+    xj, qj = jref.jnp.asarray(x, jd), jref.jnp.asarray(q, jd)
+    _close(got, jref.ref.euclid_ref(xj.astype(jref.jnp.float32),
+                                    qj.astype(jref.jnp.float32)), tol)
+    _close(got, jref.euclid(xj, qj, interpret=True), tol)
+
+
+@pytest.mark.parametrize("Q,N,T", [(2, 37, 480), (9, 1, 17), (5, 300, 1000)])
+def test_euclid_query_batch_ragged_matches_reference(jref, Q, N, T):
+    x = RNG.normal(size=(N, T)).astype(np.float32)
+    q = RNG.normal(size=(Q, T)).astype(np.float32)
+    got = ops.euclid_batch(torch.from_numpy(x), torch.from_numpy(q))
+    assert got.shape == (Q, N)
+    _close(got, jref.euclid(jref.jnp.asarray(x), jref.jnp.asarray(q),
+                            interpret=True), TOL["euclid"])
+
+
+def test_wrappers_reject_bad_inputs():
+    x = torch.zeros(4, 10)
+    with pytest.raises(ValueError):
+        ops.paa_segments(x, 3)                       # W does not divide T
+    with pytest.raises(ValueError):
+        ops.euclid_batch(x, torch.zeros(2, 9))       # T mismatch
+    with pytest.raises(ValueError):
+        ops.sax_dist(torch.zeros(4, 5, dtype=torch.int32), torch.zeros(4, 8))
+    with pytest.raises(ValueError):
+        ops.ssax_dist(*(torch.zeros(4, 3, dtype=torch.int32),) * 2,
+                      *(torch.zeros(2, 4),) * 4)      # L mismatch
+
+
+def test_cpu_tensors_never_launch():
+    before = {n: k.launches for n, k in KERNELS.items()}
+    ops.euclid_batch(torch.zeros(3, 8), torch.zeros(8))
+    ops.paa_segments(torch.zeros(3, 8), 4)
+    assert {n: k.launches for n, k in KERNELS.items()} == before
+
+
+# -- CUDA kernels against their plain versions (on the card) ---------------
+
+@pytest.mark.parametrize("N,W,A", [(1 << 16, 48, 64), (300, 16, 32),
+                                   (1000, 96, 1024), (7, 8, 4)])
+def test_sax_dist_kernel_matches_plain(cuda, N, W, A):
+    s, t = (torch.from_numpy(a).to(cuda) for a in _sax_inputs(N, W, A))
+    n0 = KERNELS["sax_dist"].launches
+    got = ops.sax_dist(s, t)
+    torch.cuda.synchronize()
+    assert KERNELS["sax_dist"].launches == n0 + 1
+    _close(got.cpu(), ref.sax_dist_ref(s, t).cpu(), TOL["sax"])
+
+
+@pytest.mark.parametrize("N,L,W,As,Ar", [(1 << 16, 10, 48, 16, 32),
+                                         (300, 8, 16, 16, 8),
+                                         (1000, 10, 96, 64, 1024),
+                                         (5, 3, 17, 4, 4)])
+def test_ssax_dist_kernel_matches_plain(cuda, N, L, W, As, Ar):
+    args = [torch.from_numpy(a).to(cuda)
+            for a in _ssax_inputs(N, L, W, As, Ar)]
+    n0 = KERNELS["ssax_dist"].launches
+    got = ops.ssax_dist(*args)
+    torch.cuda.synchronize()
+    assert KERNELS["ssax_dist"].launches == n0 + 1
+    _close(got.cpu(), ref.ssax_dist_ref(*args).cpu(), TOL["ssax"])
+
+
+def test_ssax_dist_kernel_takes_clamped_infinite_tables(cuda):
+    """The query tables carry -3.4e38/4 where the breakpoints are
+    infinite; the kernel's max form must give the plain version's sum."""
+    from repro_torch.core.breakpoints import gaussian_breakpoints
+    L, W, As, Ar, N = 10, 48, 16, 32, 4096
+    bs, br = gaussian_breakpoints(As, 0.8), gaussian_breakpoints(Ar, 0.6)
+    seas = torch.from_numpy(RNG.integers(0, As, size=(N, L)).astype(np.int32))
+    res = torch.from_numpy(RNG.integers(0, Ar, size=(N, W)).astype(np.int32))
+    tabs = ops.make_ssax_query_tables(seas[0], res[0], bs, br)
+    args = [a.to(cuda) for a in (seas, res, *tabs)]
+    _close(ops.ssax_dist(*args).cpu(), ref.ssax_dist_ref(*args).cpu(),
+           TOL["ssax"])
+
+
+@pytest.mark.parametrize("N,T,W", [(4096, 960, 48), (300, 480, 24),
+                                   (129, 1920, 96), (3, 20, 20)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paa_kernel_matches_plain(cuda, N, T, W, dtype):
+    x = torch.from_numpy(RNG.normal(size=(N, T)).astype(np.float32)).to(
+        cuda, getattr(torch, dtype))
+    n0 = KERNELS["paa"].launches
+    got = ops.paa_segments(x, W)
+    torch.cuda.synchronize()
+    assert KERNELS["paa"].launches == n0 + 1
+    tol = TOL["paa" if dtype == "float32" else "paa_bf16"]
+    _close(got.cpu(), ref.paa_ref(x, W).cpu(), tol)
+
+
+@pytest.mark.parametrize("Q,N,T", [(1, 256, 960), (8, 4096, 960),
+                                   (3, 37, 961), (2, 1, 17)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_euclid_kernel_matches_plain(cuda, Q, N, T, dtype):
+    dt = getattr(torch, dtype)
+    x = torch.from_numpy(RNG.normal(size=(N, T)).astype(np.float32)).to(
+        cuda, dt)
+    q = torch.from_numpy(RNG.normal(size=(Q, T)).astype(np.float32)).to(
+        cuda, dt)
+    n0 = KERNELS["euclid"].launches
+    got = ops.euclid_batch(x, q)
+    torch.cuda.synchronize()
+    assert KERNELS["euclid"].launches == n0 + 1
+    want = torch.stack([ref.euclid_ref(x, qi) for qi in q])
+    tol = TOL["euclid" if dtype == "float32" else "euclid_bf16"]
+    _close(got.cpu(), want.cpu(), tol)
+
+
+def test_euclid_kernel_reduction_order_fixed(cuda):
+    """A (query, row) distance is bit-identical whatever batch it is
+    computed in: alone, in a verification batch, or in a corpus sweep."""
+    x = torch.from_numpy(RNG.normal(size=(2000, 960)).astype(
+        np.float32)).to(cuda)
+    q = torch.from_numpy(RNG.normal(size=(8, 960)).astype(
+        np.float32)).to(cuda)
+    full = ops.euclid_batch(x, q).cpu()
+    rows = torch.tensor([5, 1999, 0, 777])
+    part = ops.euclid_batch(x[rows].contiguous(), q[3:4].contiguous()).cpu()
+    assert torch.equal(part[0], full[3, rows])
+    one = ops.euclid_batch(x[1999:].contiguous(), q[7]).cpu()
+    assert torch.equal(one[0], full[7, 1999])
+
+
+def test_kernels_reject_wrong_dtypes_on_card(cuda):
+    with pytest.raises(TypeError):
+        ops.euclid_batch(torch.zeros(4, 8, device=cuda, dtype=torch.float64),
+                         torch.zeros(8, device=cuda, dtype=torch.float64))
+    with pytest.raises(TypeError):
+        ops.sax_dist(torch.zeros(4, 8, device=cuda, dtype=torch.int64),
+                     torch.zeros(8, 4, device=cuda))
