@@ -1,4 +1,4 @@
-"""Dispatchers for the four kernels, the query-table builders, and the
+"""Dispatchers for the five kernels, the query-table builders, and the
 sweep the engine's ``pairwise=`` hook takes.
 
 Each dispatcher is the kernel's wrapper: a CUDA tensor launches the
@@ -19,6 +19,7 @@ from repro_torch.kernels.euclid import euclid_batch  # noqa: F401
 from repro_torch.kernels.paa import paa_segments  # noqa: F401
 from repro_torch.kernels.sax_dist import sax_dist
 from repro_torch.kernels.ssax_dist import ssax_dist
+from repro_torch.kernels import windowed_euclid as _windowed
 
 # -inf - -inf would poison the kernel max; clamp to a huge negative
 _BIG = -3.4e38 / 4
@@ -77,3 +78,20 @@ def make_pairwise(encoder):
             return scale * torch.sqrt(d2)
         return ssax_pairwise
     return encoder.pairwise_distance
+
+
+# -- the distance profile ---------------------------------------------------
+
+def windowed_euclid(x, q, stride: int = 1, method: str = "accum"):
+    """(N, T) raw rows vs (m,) or (Q, m) z-normalized queries -> (N, S)
+    or (Q, N, S) squared z-normalized window distances through K5 (its
+    plain version for CPU tensors).  Only the m-step accumulation
+    (``method="accum"``) is ported; the FFT sliding dot comes with the
+    self-join (ROADMAP queue 1 item 9)."""
+    if method == "fft":
+        raise NotImplementedError(
+            'windowed_euclid(method="fft") is not ported yet: it comes '
+            "with kernels/fft_dot.py, ROADMAP queue 1 item 9")
+    if method != "accum":
+        raise ValueError(f"unknown windowed_euclid method: {method!r}")
+    return _windowed.windowed_euclid(x, q, stride)

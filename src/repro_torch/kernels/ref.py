@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the four kernels (the allclose ground truth).
+"""Plain PyTorch versions of the five kernels (the allclose ground truth).
 
 Each mirrors its counterpart in the JAX package's ``kernels/ref.py``.
 A wrapper runs these for CPU tensors; the CPU tests hold them against
@@ -52,4 +52,16 @@ def paa_ref(x, n_segments: int):
 def euclid_ref(x, q):
     """(N, T) vs (T,) -> (N,) f32 squared Euclidean distances."""
     d = x.to(torch.float32) - q.to(torch.float32)[None, :]
+    return d.square().sum(-1)
+
+
+def windowed_euclid_ref(x, q, stride: int = 1):
+    """(N, T) raw rows vs (Q, m) z-normalized queries -> (Q, N, S)
+    squared distances to every z-normalized length-m window at
+    ``stride`` (S = (T - m) // stride + 1), windows materialized
+    explicitly as (Q, N, S, m)."""
+    from repro_torch.core.normalize import znormalize
+    m = q.shape[-1]
+    w = znormalize(x.to(torch.float32).unfold(1, m, stride))  # (N, S, m)
+    d = w[None] - q.to(torch.float32)[:, None, None, :]
     return d.square().sum(-1)

@@ -13,6 +13,17 @@ hook), and verification through the K1 euclid kernel
 instead; without a card the default raises rather than falling back.
 The brute force each exact answer is checked against is K1 over the
 whole corpus, so the engine's exact top-k must equal it bitwise.
+
+``--subseq`` switches to subsequence matching: the corpus rows become
+long series, every z-normalized window of length ``--window`` at
+``--stride`` is encoded (``subseq.WindowView``), and snippet queries are
+localized anywhere in the corpus through the pruned windowed scan
+(``subseq.SubseqEngine``), checked against a K1 brute force over every
+window and compared with the brute-force distance profile of the K5
+windowed kernel (``SubseqEngine.scan_topk``):
+
+    PYTHONPATH=src python -m repro_torch.launch.match \
+        --subseq --n 2048 --T 3600 --window 240 --stride 4 --k 8
 """
 
 from __future__ import annotations
@@ -61,6 +72,146 @@ def kernel_bruteforce(Q: np.ndarray, D: np.ndarray, k: int, device):
     return idx.astype(np.int64), np.take_along_axis(dist, idx, axis=1)
 
 
+def window_distances(data: np.ndarray, m: int, stride: int,
+                     zq: np.ndarray, device) -> np.ndarray:
+    """(Q, n_windows) f32 distances from z-normalized queries ``zq`` to
+    every window of ``data`` (window ids row-major, as ``WindowView``
+    numbers them), by K1 (its plain version on a CPU device).  The
+    windows are z-normalized by ``znorm_windows`` a few rows at a time;
+    a window's bits do not depend on its batch, and K1's per-(query,
+    row) reduction order is fixed, so these equal the distances the
+    engine verifies, bit for bit."""
+    from repro_torch.kernels.ops import euclid_batch
+    from repro_torch.kernels.windowed_euclid import n_windows
+    from repro_torch.subseq.windows import znorm_windows
+    dev = torch.device(device)
+    nw = n_windows(data.shape[1], m, stride)
+    step = max(1, BRUTEFORCE_ROWS // nw)
+    q = torch.as_tensor(np.asarray(zq, np.float32)).to(dev)
+    d2 = np.empty((zq.shape[0], data.shape[0] * nw), np.float32)
+    for lo in range(0, data.shape[0], step):
+        w = np.lib.stride_tricks.sliding_window_view(
+            data[lo:lo + step], m, axis=1)[:, ::stride].reshape(-1, m)
+        x = torch.as_tensor(znorm_windows(w)).to(dev)
+        d2[:, lo * nw:lo * nw + x.shape[0]] = euclid_batch(x, q).cpu().numpy()
+    return np.sqrt(np.maximum(d2, 0.0))
+
+
+def greedy_nonoverlap(order: np.ndarray, nw: int, stride: int, k: int,
+                      exclusion: int) -> np.ndarray:
+    """The first ``k`` window ids of ``order`` (one query's ids, best
+    first) that do not overlap an earlier pick: same row and starts
+    fewer than ``exclusion`` samples apart.  -1 pads."""
+    taken, out = [], np.full(k, -1, np.int64)
+    for wid in order:
+        r, s = divmod(int(wid), nw)
+        if any(tr == r and abs(ts - s * stride) < exclusion
+               for tr, ts in taken):
+            continue
+        out[len(taken)] = wid
+        taken.append((r, s * stride))
+        if len(taken) == k:
+            break
+    return out
+
+
+def subseq_queries(D: np.ndarray, m: int, n_queries: int,
+                   rng: np.random.Generator):
+    """``n_queries`` snippets of ``m`` samples at random rows and offsets
+    of ``D`` plus 0.05 Gaussian noise: (Q, m) f32, their rows, their
+    offsets."""
+    rows = rng.integers(0, D.shape[0], size=n_queries)
+    offs = rng.integers(0, D.shape[1] - m + 1, size=n_queries)
+    Q = np.stack([D[r, o:o + m] for r, o in zip(rows, offs)])
+    Q = Q + 0.05 * rng.normal(size=Q.shape).astype(np.float32)
+    return Q, rows, offs
+
+
+def make_subseq_engine(technique: str, D: np.ndarray, *, m: int,
+                       stride: int, L: int = 10, strength: float = 0.7,
+                       batch: int = 256, store: str = "ssd",
+                       verify: str = "auto", device="cuda"):
+    """A ``WindowView`` of ``D`` (window ``m``, W = m / L) and a
+    ``SubseqEngine`` over it with the kernel sweep for SAX / sSAX."""
+    from repro_torch.core.techniques import make_technique
+    from repro_torch.kernels.ops import make_pairwise
+    from repro_torch.subseq import SubseqEngine, WindowView
+    tech = make_technique(technique, T=m, W=m // L, L=L,
+                          r2_season=strength)
+    view = WindowView(tech, D, stride=stride, media=store, device=device)
+    return view, SubseqEngine(view, batch_size=batch, verify=verify,
+                              pairwise=make_pairwise(tech))
+
+
+def run_subseq(args, device):
+    """Subsequence mode: encode every window of an (n, T) long-series
+    corpus, localize snippet queries exactly, check them against a K1
+    brute force over every window and the K5 brute-force scan."""
+    from repro_torch.data.synthetic import season_dataset
+    m, s = args.window, args.stride
+    if m % args.L:
+        raise SystemExit(f"--window {m} must be a multiple of --L {args.L}")
+    if m > args.T:
+        raise SystemExit(f"--window {m} longer than --T {args.T}")
+    rng = np.random.default_rng(7)
+    D = season_dataset(args.n, args.T, args.L, args.strength,
+                       per_series_strength=True, seed=7)
+    Q, q_rows, offs = subseq_queries(D, m, args.queries, rng)
+
+    t0 = time.perf_counter()
+    view, engine = make_subseq_engine(
+        args.technique, D, m=m, stride=s, L=args.L, strength=args.strength,
+        batch=args.batch, store=args.store, verify=args.verify,
+        device=device)
+    print(f"[subseq] {args.technique} over {args.n} x {args.T} "
+          f"-> {view.n} windows (m={m}, stride={s}) on {device}; "
+          f"encode {time.perf_counter() - t0:.2f}s")
+
+    view.reset()
+    t0 = time.perf_counter()
+    res = engine.topk(Q, k=args.k, exclusion=args.exclusion)
+    dt = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    scan = engine.scan_topk(Q, k=args.k)
+    dt_scan = time.perf_counter() - t0
+    d = window_distances(D, m, s, engine.normalize_queries(Q), device)
+    order = np.argsort(d, axis=1, kind="stable")
+    nw = view.windows_per_row
+    want = np.stack([greedy_nonoverlap(order[qi], nw, s, args.k,
+                                       args.exclusion)
+                     for qi in range(args.queries)])
+    exact = sum(int(np.array_equal(res.window_ids[qi], want[qi]))
+                for qi in range(args.queries))
+    hits = sum(int(res.window_ids[qi, 0] == scan.window_ids[qi, 0])
+               for qi in range(args.queries))
+    loc = sum(int(res.rows[qi, 0] == q_rows[qi]
+                  and abs(res.starts[qi, 0] - offs[qi]) < m)
+              for qi in range(args.queries))
+    print(f"[subseq] exact k={args.k}"
+          + (f" excl={args.exclusion}" if args.exclusion else "")
+          + f": {exact}/{args.queries} query frontiers == brute force; "
+          f"top-1 == K5 scan {hits}/{args.queries}, snippet localized "
+          f"{loc}/{args.queries}; windows/query "
+          f"{res.raw_accesses.mean():.0f} "
+          f"({1 - res.pruned_fraction.mean():.2%} of {view.n}); "
+          f"rows read {res.store_accesses}/{view.n_rows}; modeled "
+          f"{args.store} I/O {res.io_seconds * 1e3:.2f}ms vs scan "
+          f"{scan.io_seconds * 1e3:.2f}ms; wall {dt:.2f}s "
+          f"(scan {dt_scan:.2f}s)")
+
+    # streaming: new long series are searchable immediately
+    extra = season_dataset(2, args.T, args.L, args.strength, seed=8)
+    t0 = time.perf_counter()
+    view.append(extra)
+    print(f"[subseq] append 2 rows (+{2 * nw} windows) in "
+          f"{(time.perf_counter() - t0) * 1e3:.0f}ms; corpus "
+          f"{view.n_rows} rows / {view.n} windows")
+    o2 = min(100, args.T - m)
+    res2 = engine.topk(extra[:1, o2:o2 + m], k=1)
+    print(f"[subseq] query of appended row -> row {res2.rows[0, 0]} "
+          f"start {res2.starts[0, 0]} d={res2.distances[0, 0]:.4f}")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--n", type=int, default=20_000)
@@ -81,20 +232,33 @@ def main(argv=None):
                     "always verify through K1")
     ap.add_argument("--device", default="cuda",
                     help="where encode, sweep and verification run")
+    ap.add_argument("--subseq", action="store_true",
+                    help="subsequence matching over long series")
+    ap.add_argument("--window", type=int, default=240,
+                    help="subsequence window length m (encoder T)")
+    ap.add_argument("--stride", type=int, default=4,
+                    help="window hop in samples")
+    ap.add_argument("--exclusion", type=int, default=0,
+                    help="non-overlap suppression distance (0: off)")
     ap.add_argument("--dryrun", action="store_true",
                     help="shrink every dimension to a seconds-scale smoke")
     args = ap.parse_args(argv)
 
     if args.dryrun:
-        args.n = min(args.n, 256)
+        args.n = min(args.n, 12 if args.subseq else 256)
         args.T = min(args.T, 480)
         args.queries = min(args.queries, 4)
         args.k = min(args.k, 8)
         args.batch = min(args.batch, 64)
+        if args.subseq:
+            args.window = min(args.window, 240)
+            args.stride = max(args.stride, 8)
 
     from repro_torch.core.engine import resolve_device
     from repro_torch.data.synthetic import season_corpus
     device = resolve_device(args.device)
+    if args.subseq:
+        return run_subseq(args, device)
     X = season_corpus(args.n + args.queries, args.T, args.L, args.strength,
                       per_series_strength=True, seed=1)
     Q, D = X[:args.queries], X[args.queries:]

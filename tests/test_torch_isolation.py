@@ -65,12 +65,31 @@ def test_engine_defaults_to_the_card():
         "cpu"
 
 
-def test_launcher_defaults_to_the_card():
+@pytest.mark.parametrize("argv", [["--dryrun"], ["--dryrun", "--subseq"]])
+def test_launcher_defaults_to_the_card(argv):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default runs there")
     from repro_torch.launch.match import main
     with pytest.raises(RuntimeError, match="CUDA"):
-        main(["--dryrun"])
+        main(argv)
+
+
+def test_store_and_subseq_default_to_the_card():
+    from repro_torch.core import make_technique
+    from repro_torch.store import SymbolicStore
+    from repro_torch.subseq import SubseqEngine, WindowView
+    enc = make_technique("sax", T=240, W=24)
+    D = np.zeros((2, 480), np.float32)
+    if torch.cuda.is_available():
+        view = WindowView(enc, D)
+        assert view.device.type == SubseqEngine(view).device.type == "cuda"
+        assert SymbolicStore(enc).device.type == "cuda"
+    else:
+        for make in (lambda: WindowView(enc, D), lambda: SymbolicStore(enc)):
+            with pytest.raises(RuntimeError, match="CUDA"):
+                make()
+    view = WindowView(enc, D, device="cpu")
+    assert SubseqEngine(view).device.type == "cpu"
 
 
 def test_wrappers_never_guess_a_route():
@@ -82,6 +101,8 @@ def test_wrappers_never_guess_a_route():
         ops.euclid_batch(meta, torch.zeros(8))
     with pytest.raises(ValueError):
         ops.paa_segments(meta, 4)
+    with pytest.raises(ValueError):
+        ops.windowed_euclid(meta, torch.zeros(4))
 
 
 def test_chip_smoke_alone_fails_without_result(tmp_path):

@@ -3,7 +3,8 @@ package's oracle and its interpret-mode Pallas kernel (CPU), and each
 CUDA kernel against its plain version (skipped without a card).
 
 Tolerances are the JAX package's own (tests/test_kernels.py): sax 1e-5,
-ssax 1e-4, paa 1e-5 (bf16 2e-2), euclid 1e-4 (bf16 5e-2), rtol = atol.
+ssax 1e-4, paa 1e-5 (bf16 2e-2), euclid 1e-4 (bf16 5e-2), windowed
+euclid 1e-3, rtol = atol.
 They cover summation order, which differs between the frameworks and
 between the kernels and their plain versions."""
 
@@ -17,7 +18,13 @@ from repro_torch.kernels import ops  # noqa: E402
 
 RNG = np.random.default_rng(7)
 TOL = {"sax": 1e-5, "ssax": 1e-4, "paa": 1e-5, "paa_bf16": 2e-2,
-       "euclid": 1e-4, "euclid_bf16": 5e-2}
+       "euclid": 1e-4, "euclid_bf16": 5e-2, "windowed": 1e-3}
+# (Q, N, T, m, stride) of the reference's tests/test_kernels.py: one
+# query, stride > 1 with a ragged tail, ragged everything, one window
+# per row, more rows than the TPU kernel's row block
+WINDOWED_SHAPES = [(1, 4, 256, 64, 1), (3, 5, 300, 32, 3),
+                   (2, 9, 1111, 64, 7), (2, 2, 100, 100, 1),
+                   (4, 24, 960, 120, 5)]
 
 
 @pytest.fixture(scope="module")
@@ -30,6 +37,7 @@ def jref():
     from repro.kernels.paa import paa_pallas
     from repro.kernels.sax_dist import sax_dist_pallas
     from repro.kernels.ssax_dist import ssax_dist_pallas
+    from repro.kernels.windowed_euclid import windowed_euclid_pallas
 
     class R:
         pass
@@ -37,6 +45,7 @@ def jref():
     r.jnp, r.ref = jnp, jax_ref
     r.euclid, r.paa, r.sax, r.ssax = (euclid_pallas, paa_pallas,
                                       sax_dist_pallas, ssax_dist_pallas)
+    r.windowed = windowed_euclid_pallas
     return r
 
 
@@ -63,6 +72,11 @@ def _ssax_inputs(N, L, W, As, Ar):
             RNG.integers(0, Ar, size=(N, W)).astype(np.int32),
             *(RNG.normal(size=s).astype(np.float32)
               for s in ((L, As), (L, As), (W, Ar), (W, Ar))))
+
+
+def _znorm_queries(Q, m):
+    q = RNG.normal(size=(Q, m)).astype(np.float32)
+    return (q - q.mean(-1, keepdims=True)) / q.std(-1, keepdims=True)
 
 
 # -- plain versions against the JAX package (CPU) ---------------------------
@@ -129,6 +143,46 @@ def test_euclid_query_batch_ragged_matches_reference(jref, Q, N, T):
                             interpret=True), TOL["euclid"])
 
 
+@pytest.mark.parametrize("Q,N,T,m,stride", WINDOWED_SHAPES)
+def test_windowed_euclid_plain_matches_reference(jref, Q, N, T, m, stride):
+    x = RNG.normal(size=(N, T)).astype(np.float32)
+    q = _znorm_queries(Q, m)
+    got = ops.windowed_euclid(torch.from_numpy(x), torch.from_numpy(q),
+                              stride)
+    assert got.shape == (Q, N, (T - m) // stride + 1)
+    xj, qj = jref.jnp.asarray(x), jref.jnp.asarray(q)
+    _close(got, jref.ref.windowed_euclid_ref(xj, qj, stride), TOL["windowed"])
+    _close(got, jref.windowed(xj, qj, stride=stride, interpret=True),
+           TOL["windowed"])
+
+
+def test_windowed_euclid_plain_constant_window(jref):
+    """A zero-variance window z-normalizes to the zero vector, so its
+    distance is sum(q^2), as in the reference."""
+    x = np.ones((1, 64), np.float32)
+    q = _znorm_queries(1, 16)
+    got = ops.windowed_euclid(torch.from_numpy(x), torch.from_numpy(q))
+    _close(got, np.full(got.shape, np.sum(q ** 2)), TOL["windowed"])
+    _close(got, jref.windowed(jref.jnp.asarray(x), jref.jnp.asarray(q),
+                              interpret=True), TOL["windowed"])
+
+
+def test_windowed_euclid_single_query_and_routes():
+    x = torch.from_numpy(RNG.normal(size=(3, 50)).astype(np.float32))
+    q = torch.from_numpy(_znorm_queries(2, 10))
+    both = ops.windowed_euclid(x, q, stride=4)
+    one = ops.windowed_euclid(x, q[1], stride=4)
+    assert one.shape == (3, 11) and torch.equal(one, both[1])
+    with pytest.raises(NotImplementedError, match="item 9"):
+        ops.windowed_euclid(x, q, method="fft")
+    with pytest.raises(ValueError):
+        ops.windowed_euclid(x, q, method="mass")
+    with pytest.raises(ValueError):
+        ops.windowed_euclid(x, torch.zeros(2, 51))      # m > T
+    with pytest.raises(ValueError):
+        ops.windowed_euclid(x, q, stride=0)
+
+
 def test_wrappers_reject_bad_inputs():
     x = torch.zeros(4, 10)
     with pytest.raises(ValueError):
@@ -146,6 +200,7 @@ def test_cpu_tensors_never_launch():
     before = {n: k.launches for n, k in KERNELS.items()}
     ops.euclid_batch(torch.zeros(3, 8), torch.zeros(8))
     ops.paa_segments(torch.zeros(3, 8), 4)
+    ops.windowed_euclid(torch.zeros(3, 8), torch.zeros(4))
     assert {n: k.launches for n, k in KERNELS.items()} == before
 
 
@@ -237,6 +292,35 @@ def test_euclid_kernel_reduction_order_fixed(cuda):
     assert torch.equal(one[0], full[7, 1999])
 
 
+@pytest.mark.parametrize("Q,N,T,m,stride",
+                         WINDOWED_SHAPES + [(8, 64, 3600, 240, 4),
+                                            (9, 3, 5000, 1000, 33)])
+def test_windowed_euclid_kernel_matches_plain(cuda, Q, N, T, m, stride):
+    x = torch.from_numpy(RNG.normal(size=(N, T)).astype(np.float32)).to(cuda)
+    q = torch.from_numpy(_znorm_queries(Q, m)).to(cuda)
+    n0 = KERNELS["windowed_euclid"].launches
+    got = ops.windowed_euclid(x, q, stride)
+    torch.cuda.synchronize()
+    assert KERNELS["windowed_euclid"].launches == n0 + 1
+    _close(got.cpu(), ref.windowed_euclid_ref(x, q, stride).cpu(),
+           TOL["windowed"])
+
+
+def test_windowed_euclid_kernel_offset_and_constant_rows(cuda):
+    """Rows offset by 1000 do not cancel (two-pass window statistics),
+    and a constant window gives exactly sum(q^2)."""
+    x = torch.from_numpy(RNG.normal(size=(16, 3600)).astype(
+        np.float32)).to(cuda)
+    q = torch.from_numpy(_znorm_queries(8, 240)).to(cuda)
+    off = x + 1000.0
+    _close(ops.windowed_euclid(off, q, 4).cpu(),
+           ref.windowed_euclid_ref(off, q, 4).cpu(), TOL["windowed"])
+    const = torch.full((2, 1000), 2.5, device=cuda)
+    got = ops.windowed_euclid(const, q, 4).cpu()
+    want = q.square().sum(-1).cpu()[:, None, None].expand_as(got)
+    _close(got, want, TOL["windowed"])
+
+
 def test_kernels_reject_wrong_dtypes_on_card(cuda):
     with pytest.raises(TypeError):
         ops.euclid_batch(torch.zeros(4, 8, device=cuda, dtype=torch.float64),
@@ -244,3 +328,7 @@ def test_kernels_reject_wrong_dtypes_on_card(cuda):
     with pytest.raises(TypeError):
         ops.sax_dist(torch.zeros(4, 8, device=cuda, dtype=torch.int64),
                      torch.zeros(8, 4, device=cuda))
+    with pytest.raises(TypeError):
+        ops.windowed_euclid(torch.zeros(4, 8, device=cuda,
+                                        dtype=torch.float64),
+                            torch.zeros(4, device=cuda, dtype=torch.float64))
