@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py          # every phase, on one card
+    python3 chip_smoke.py --k5     # build, then time K5 alone
+    python3 chip_smoke.py --split  # build, then the main path's topk split
 
 Phases, each failing loudly with a nonzero exit:
 
@@ -10,9 +12,14 @@ Phases, each failing loudly with a nonzero exit:
 2. Hold each kernel (K1 euclid, K2 ssax_dist, K3 sax_dist, K4 paa, K5
    windowed_euclid) against its plain PyTorch version on the card at
    both paths' shapes (whole series and windows) plus ragged ones;
-   time the kernel, the plain
-   version and, where one exists, a single PyTorch call computing the
-   same function.
+   time the kernel, the plain version and, where one exists, a single
+   PyTorch call computing the same function.  K1's gathered entry runs
+   at the verification round shape (T = 960, 240, bf16, 961) and must
+   equal its all-pairs entry bitwise; it is timed on the device (a
+   CUDA graph, rows from HBM and rows in L2) and as one host-clock
+   call.  K5 runs at strides 4 and 1 and at one ``scan_topk`` launch
+   (38 rows), each timed launch checked on its first rows; K4 at the
+   window shape.
 3. Drive the main path through the launcher's ``make_engine`` and
    ``MatchEngine.topk``: sSAX and SAX exact top-k (k = 1, 32) over a
    1,000,000 x 960 season corpus, tSAX and stSAX over its first 65,536
@@ -29,6 +36,10 @@ Phases, each failing loudly with a nonzero exit:
    the K5 scan must agree away from near-ties, a row appended later
    must be found, and a chunked window encode must equal a one-shot one
    on the card bitwise.
+   Phases 3 and 4 print the split of one warm topk call (sweep, host
+   argsort, verification loop) and fail unless every call's K1 launches
+   equal its verification rounds (one gathered launch per round; on
+   whole series every round is also one store fetch).
 5. Print each path's launch counts (each kernel of a path > 0) and the
    ``{"kernels": [...]}`` line with the launches of both paths.
 6. Print the card's name and power limit, then the result line.
@@ -54,6 +65,7 @@ T, W, L, STRENGTH = 960, 48, 10, 0.7
 N_QUERIES, KS, BATCH = 8, (1, 32), 256
 SUB_ROWS, SUB_SMALL, SUB_T = 2048, 256, 3600   # subsequence corpus
 SUB_M, SUB_STRIDE, SUB_EXCL = 240, 4, 120      # window, hop, exclusion
+SUB_CHUNK_ROWS = 38           # rows of one scan_topk launch (2.5e8 B chunk)
 SUB_CALLS = {"ssax": ((1, 0), (8, 0), (8, SUB_EXCL)), "sax": ((8, 0),),
              "tsax": ((8, 0),), "stsax": ((8, 0),)}   # (k, exclusion)
 TOL = {"euclid": 1e-4, "euclid_bf16": 5e-2, "ssax_dist": 1e-4,
@@ -91,6 +103,165 @@ def time_ms(torch, fn, iters: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(torch, fn, n: int = 100) -> float:
+    """Device time of one ``fn()``: ``n`` calls captured in a CUDA graph,
+    the graph replayed between two events, divided by ``n``.  No host
+    cost of the calls is in it.  ``fn`` must launch without host work
+    that a capture forbids (no synchronisation, no pageable copies)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def k5_shapes(torch, ops, ref, dev):
+    """K5 at the scan shape at stride 4 and at stride 1, and at the shape
+    of one ``scan_topk`` launch (38 rows at stride 4): device time (CUDA
+    events, back to back; the chunk shape from a CUDA graph), time per
+    window and bound.  The first 64 rows of each timed launch's output
+    (all 38 of the chunk's) are held against the plain version on those
+    rows.  Returns the rows, keyed by shape name."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn(SUB_ROWS, SUB_T, generator=g, device=dev)
+    q = torch.randn(N_QUERIES, SUB_M, generator=g, device=dev)
+    q = (q - q.mean(-1, keepdim=True)) / q.std(-1, keepdim=True,
+                                               correction=0)
+    out = {}
+    for name, n_rows, stride in (("stride4", SUB_ROWS, SUB_STRIDE),
+                                 ("stride1", SUB_ROWS, 1),
+                                 ("chunk38", SUB_CHUNK_ROWS, SUB_STRIDE)):
+        xs = x[:n_rows].contiguous()
+        s = (SUB_T - SUB_M) // stride + 1
+        n_chk = min(n_rows, 64)
+        err = check(f"windowed_euclid {name} (first {n_chk} rows)",
+                    ops.windowed_euclid(xs, q, stride)[:, :n_chk],
+                    ref.windowed_euclid_ref(xs[:n_chk], q, stride),
+                    TOL["windowed_euclid"])
+        fn = (lambda xs=xs, stride=stride:
+              ops.windowed_euclid(xs, q, stride))
+        ms = (graph_ms(torch, fn) if n_rows < SUB_ROWS
+              else time_ms(torch, fn, 20))
+        b = bound_ms(n_rows * SUB_T * 4 + N_QUERIES * SUB_M * 4
+                     + N_QUERIES * n_rows * s * 4,
+                     2 * SUB_M * N_QUERIES * n_rows * s)
+        out[name] = dict(ms=ms, windows=n_rows * s, max_abs_err=err,
+                         ns_per_window=ms * 1e6 / (n_rows * s), bound=b,
+                         shape=f"Q={N_QUERIES}, ({n_rows}, {SUB_T}), "
+                               f"m={SUB_M}, stride {stride}, S={s}")
+        say(f"K5 {name} [{out[name]['shape']}]: {ms:.5f} ms, "
+            f"{out[name]['ns_per_window']:.5f} ns per window, bound "
+            f"{b[0]:.5f} ms ({b[1]})")
+    return out
+
+
+def host_ms(torch, fn, iters: int = 200, warmup: int = 5) -> float:
+    """Mean host-clock time of ``fn()`` followed by a synchronisation,
+    as the verification loop pays it (it reads the result back)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        total += time.perf_counter() - t0
+    return total / iters * 1e3
+
+
+def k1_gathered(torch, ops, ref, dev):
+    """K1's gathered entry at the verification round shape (Qa = 8 active
+    queries, B = 256 candidates each, U = 2,048 rows) at T = 960 (whole
+    series), T = 240 (windows), bf16 and the ragged T = 961.  As on the
+    path, the rows are exactly the union of the candidates: the gather
+    is a permutation of the U rows split across the queries, so every
+    row is read once.  Each is held bitwise to the all-pairs entry on
+    the gathered rows and to the plain version within tolerance.  At
+    T = 960 f32: device time from a CUDA graph of 100 launches, cycling
+    over 8 copies of the rows (63 MB, beyond the 50 MB L2, so each
+    launch reads its rows from HBM) and, beside it, on one copy that
+    stays in L2 across the replays; the host-clock time of one wrapper
+    call (host gather checked and copied, one launch, synchronised)
+    beside the per-query route the engine took before (eight gather
+    copies, eight all-pairs launches, a stack); and the bound.  Returns
+    the kernel row of the report."""
+    import numpy as np
+    from repro_torch.kernels import euclid as k1
+    rng = np.random.default_rng(3)
+    U, qa = 2 * 1024, N_QUERIES
+    g_np = rng.permutation(U).reshape(qa, BATCH).astype(np.int64)
+    g_dev = torch.from_numpy(g_np).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    err, row = 0.0, None
+    for t_len, dtype in ((T, torch.float32), (SUB_M, torch.float32),
+                         (T, torch.bfloat16), (961, torch.float32)):
+        rows = torch.randn(U, t_len, generator=gen, device=dev).to(dtype)
+        q = torch.randn(qa, t_len, generator=gen, device=dev).to(dtype)
+        got = ops.euclid_gather(rows, q, g_np)
+        per_q = torch.stack([ops.euclid_batch(rows[g_dev[a]].contiguous(),
+                                              q[a]) for a in range(qa)])
+        name = f"euclid gathered T={t_len} {str(dtype)[6:]}"
+        if not torch.equal(got, per_q):
+            fail(f"{name}: differs from the all-pairs kernel on the "
+                 f"gathered rows")
+        tol = TOL["euclid" if dtype == torch.float32 else "euclid_bf16"]
+        err = max(err, check(name, got, ref.euclid_gather_ref(rows, q, g_dev),
+                             tol))
+        if row is not None:
+            continue
+        out = torch.empty(qa, BATCH, device=dev)
+        esize = rows.element_size()
+        copies = [rows] + [rows.clone() for _ in range(7)]
+        turn = iter(range(1 << 30))
+
+        def from_hbm():
+            k1.launch_gather(copies[next(turn) % len(copies)], q, g_dev, out)
+        row = dict(
+            ms=graph_ms(torch, from_hbm),
+            l2_ms=graph_ms(torch, lambda: k1.launch_gather(rows, q, g_dev,
+                                                           out)),
+            host_ms=host_ms(torch, lambda: ops.euclid_gather(rows, q, g_np)),
+            per_query_host_ms=host_ms(torch, lambda: torch.stack(
+                [ops.euclid_batch(rows[g_dev[a]], q[a])
+                 for a in range(qa)])),
+            plain_ms=time_ms(torch, lambda: ref.euclid_gather_ref(
+                rows, q, g_dev), 50),
+            library_ms=time_ms(torch, lambda: torch.cdist(
+                q[:, None, :], rows[g_dev]).square(), 50),
+            bound=bound_ms(U * t_len * esize + qa * t_len * esize
+                           + qa * BATCH * 8 + qa * BATCH * 4,
+                           3 * qa * BATCH * t_len),
+            shape=f"gathered, rows ({U}, {t_len}) f32 all read, q ({qa}, "
+                  f"{t_len}), gather ({qa}, {BATCH})")
+        del copies
+        say(f"kernel euclid [{row['shape']}]: device {row['ms']:.5f} ms "
+            f"(CUDA graph of 100 over 8 copies of the rows, read from "
+            f"HBM), {row['l2_ms']:.5f} ms with the rows in L2 (one copy); "
+            f"one wrapper call {row['host_ms']:.5f} ms on the host clock "
+            f"against {row['per_query_host_ms']:.5f} ms for the per-query "
+            f"route, bound {row['bound'][0]:.6f} ms ({row['bound'][1]}); "
+            f"library = cdist on the gathered rows (gather copy included) "
+            f"{row['library_ms']:.5f} ms")
+    row["max_abs_err"] = err
+    say(f"euclid gathered == all pairs on the gathered rows, bitwise, at "
+        f"T = {T}, {SUB_M}, {T} bf16 and 961")
+    return row
 
 
 def sync(torch, dev):
@@ -205,13 +376,17 @@ def kernel_phase(torch, ops, ref, dev):
     xb, qb = xq[:4096].to(torch.bfloat16), qq.to(torch.bfloat16)
     err = max(err, check("euclid bf16", ops.euclid_batch(xb, qb),
                          plain_euclid(xb, qb), TOL["euclid_bf16"]))
-    rows["euclid"] = dict(
-        max_abs_err=err,
+    single = dict(
         ms=time_ms(torch, lambda: ops.euclid_batch(xv, qv), 200),
         plain_ms=time_ms(torch, lambda: plain_euclid(xv, qv), 200),
         library_ms=time_ms(torch, lambda: torch.cdist(qv, xv) ** 2, 200),
         bound=bound_ms(BATCH * T * 4 + T * 4 + BATCH * 4, 3 * BATCH * T),
-        shape=f"x ({BATCH}, {T}) f32, q (1, {T})")
+        shape=f"all pairs, x ({BATCH}, {T}) f32, q (1, {T})")
+    rows["euclid"] = k1_gathered(torch, ops, ref, dev)
+    rows["euclid"]["max_abs_err"] = max(err, rows["euclid"]["max_abs_err"])
+    say(f"kernel euclid [{single['shape']}]: {single['ms']:.5f} ms (events, "
+        f"back to back), plain {single['plain_ms']:.5f} ms, library "
+        f"{single['library_ms']:.5f} ms, bound {single['bound'][0]:.6f} ms")
 
     # K5 windowed_euclid at the reference's test shapes, the scan shape
     # on its first 64 rows (the plain version materializes (Q, N, S, m)),
@@ -259,6 +434,9 @@ def kernel_phase(torch, ops, ref, dev):
         shape=f"x ({SUB_ROWS}, {SUB_T}) f32, q ({N_QUERIES}, {SUB_M}), "
               f"stride {SUB_STRIDE}; plain on the first 64 rows")
     del xs, x64
+    for r in k5_shapes(torch, ops, ref, dev).values():
+        rows["windowed_euclid"]["max_abs_err"] = max(
+            rows["windowed_euclid"]["max_abs_err"], r["max_abs_err"])
 
     # K1-K4 at the subsequence path's shapes: windows of m = 240 encoded
     # with W = 24 (K4 on one row's 841 windows; K2 and K3 over all
@@ -270,6 +448,14 @@ def kernel_phase(torch, ops, ref, dev):
     xw = randn(n_win, SUB_M)
     sub["paa"] = check("paa subseq", ops.paa_segments(xw, w_sub),
                        ref.paa_ref(xw, w_sub), TOL["paa"])
+    b = bound_ms(n_win * SUB_M * 4 + n_win * w_sub * 4, n_win * SUB_M)
+    say(f"kernel paa [x ({n_win}, {SUB_M}) f32 -> ({n_win}, {w_sub}), one "
+        f"window-encode launch]: device "
+        f"{graph_ms(torch, lambda: ops.paa_segments(xw, w_sub)):.5f} ms "
+        f"(CUDA graph of 100), plain "
+        f"{graph_ms(torch, lambda: ref.paa_ref(xw, w_sub)):.5f} ms, library "
+        f"{graph_ms(torch, lambda: xw.view(n_win, w_sub, SUB_M // w_sub).mean(-1)):.5f} "
+        f"ms, bound {b[0]:.6f} ms ({b[1]})")
     sym, tab = randint(A, (n_sub, w_sub)), randn(w_sub, A).square()
     sub["sax_dist"] = check("sax_dist subseq", ops.sax_dist(sym, tab),
                             ref.sax_dist_ref(sym, tab), TOL["sax_dist"])
@@ -300,6 +486,47 @@ def kernel_phase(torch, ops, ref, dev):
             f"{r['bound'][0]:.4f} ms ({r['bound'][1]}), max abs err "
             f"{r['max_abs_err']:.3g}")
     return rows
+
+
+def split(torch, np, dev, engines, Q):
+    """Where one warm 8-query topk call's wall time goes, for sSAX and
+    SAX at k = 32 (host clock): the sweep (query encode, one K2/K3 launch
+    per query, bounds to the host), the host's stable argsort of the
+    (Q, N) bounds, and the verification loop (fetch, K1, merge) that is
+    the rest."""
+    for tech in ("ssax", "sax"):
+        engine, k = engines[tech], max(KS)
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        rd = engine.repr_distances(Q)
+        t_sweep = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        np.argsort(rd, axis=1, kind="stable")
+        t_sort = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        engine.topk(Q, k=k)
+        t_all = time.perf_counter() - t0
+        say(f"breakdown {tech} N={N_MAIN} k={k}: topk {t_all:.3f} s = sweep "
+            f"{t_sweep:.3f} s + host argsort {t_sort:.3f} s + verification "
+            f"loop {t_all - t_sweep - t_sort:.3f} s")
+
+
+def split_only(torch, np, dev):
+    """``--split``: the main path's corpus and its sSAX and SAX engines,
+    one warm-up topk each, then :func:`split`.  It calls only entry
+    points every slice of the port has, so the same script can time an
+    earlier tree's ``src`` beside this one."""
+    from repro_torch.data.synthetic import season_corpus
+    from repro_torch.launch.match import make_engine
+    X = season_corpus(N_MAIN + N_QUERIES, T, L, STRENGTH,
+                      per_series_strength=True, seed=1)
+    Q, D = X[:N_QUERIES], X[N_QUERIES:]
+    engines = {tech: make_engine(tech, D, L=L, strength=STRENGTH,
+                                 batch=BATCH, verify="auto", device=dev)
+               for tech in ("ssax", "sax")}
+    for engine in engines.values():
+        engine.topk(Q, k=max(KS))
+    split(torch, np, dev, engines, Q)
 
 
 def main_path(torch, np, dev):
@@ -340,26 +567,9 @@ def main_path(torch, np, dev):
             f"{t_enc:.2f} s")
     counts = launch_counts()
     say(f"main path launches: {counts}")
+    rounds_check("main path", results.values(), exact_fetch=True)
 
-    # where one topk call's wall time goes (host clock; after the counted
-    # run): the sweep (query encode, one K2/K3 launch per query, bounds to
-    # the host), the host's stable argsort of the (Q, N) bounds, and the
-    # verification loop (fetch, K1, merge) that is the rest
-    for tech in ("ssax", "sax"):
-        engine, k = engines[tech], max(KS)
-        sync(torch, dev)
-        t0 = time.perf_counter()
-        rd = engine.repr_distances(Q)
-        t_sweep = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        np.argsort(rd, axis=1, kind="stable")
-        t_sort = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        engine.topk(Q, k=k)
-        t_all = time.perf_counter() - t0
-        say(f"breakdown {tech} N={N_MAIN} k={k}: topk {t_all:.3f} s = sweep "
-            f"{t_sweep:.3f} s + host argsort {t_sort:.3f} s + verification "
-            f"loop {t_all - t_sweep - t_sort:.3f} s")
+    split(torch, np, dev, engines, Q)
     engines.clear()
 
     for tech, data in plan:
@@ -448,11 +658,15 @@ def subseq_path(torch, np, dev):
     t0 = time.perf_counter()
     views["ssax"].append(extra)
     t_app = time.perf_counter() - t0
+    before = launch_counts()
     t0 = time.perf_counter()
     res_app = engines["ssax"].topk(extra[:1, 100:100 + SUB_M], k=1)
     t_app_q = time.perf_counter() - t0
     counts = launch_counts()
     say(f"subsequence path launches: {counts}")
+    rounds_check("subsequence path", [*results.values(), (
+        res_app, None, {c: v - before[c] for c, v in counts.items()})],
+        exact_fetch=False)
 
     # where one sSAX k = 8 call's wall time goes (host clock, after the
     # counted run): the sweep, the host's stable argsort of the (Q,
@@ -553,6 +767,25 @@ def subseq_path(torch, np, dev):
     return counts
 
 
+def rounds_check(path: str, calls, exact_fetch: bool):
+    """One gathered K1 launch per verification round: every topk call's
+    K1 launches must equal its rounds.  On whole series every round is
+    one store fetch; over windows a round whose rows all sit in the row
+    buffer bills none, so there fetches <= rounds."""
+    launches = fetches = rounds = 0
+    for res, _, c in calls:
+        launches += c["euclid"]
+        fetches += res.store_fetches
+        rounds += res.rounds
+        if c["euclid"] != res.rounds or res.store_fetches > res.rounds or (
+                exact_fetch and res.store_fetches != res.rounds):
+            fail(f"{path}: a topk call made {c['euclid']} K1 launches in "
+                 f"{res.rounds} verification rounds with "
+                 f"{res.store_fetches} store fetches")
+    say(f"{path}: K1 launches {launches} == verification rounds {rounds}; "
+        f"store fetches {fetches}")
+
+
 def plain_bruteforce(torch, np, ref, Q, D, dev):
     """(Q, N) f32 distances through the plain version of K1."""
     step = 1 << 18
@@ -563,6 +796,16 @@ def plain_bruteforce(torch, np, ref, Q, D, dev):
         d2 = torch.stack([ref.euclid_ref(x, qi) for qi in q])
         out[:, lo:lo + step] = d2.cpu().numpy()
     return np.sqrt(np.maximum(out, 0.0))
+
+
+def card_label() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    if smi.returncode or not smi.stdout.strip():
+        fail(f"nvidia-smi: {smi.stderr.strip()}")
+    return smi.stdout.strip().splitlines()[0]
 
 
 def main():
@@ -581,10 +824,17 @@ def main():
 
     from repro_torch.kernels import _lib, ops, ref
     say(f"torch {torch.__version__} (CUDA {torch.version.cuda}) on "
-        f"{torch.cuda.get_device_name(0)}")
+        f"{torch.cuda.get_device_name(0)}; every time below is on this "
+        f"card: {card_label()}")
     _lib.load()
     say(f"phase 1: kernels built from {_lib.CSRC.relative_to(root)} in "
         f"{_lib.build_seconds():.1f} s -> {_lib.library_path().parent}")
+    if sys.argv[1:] in (["--k5"], ["--split"]):
+        if sys.argv[1] == "--k5":
+            k5_shapes(torch, ops, ref, dev)
+        else:
+            split_only(torch, np, dev)
+        return
 
     t0 = time.perf_counter()
     rows = kernel_phase(torch, ops, ref, dev)
@@ -621,12 +871,7 @@ def main():
         f"{time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    if smi.returncode or not smi.stdout.strip():
-        fail(f"nvidia-smi: {smi.stderr.strip()}")
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print(card_label(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

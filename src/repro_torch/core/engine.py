@@ -60,7 +60,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.matching import RawStore
-from repro_torch.kernels.euclid import euclid_batch
+from repro_torch.kernels.euclid import euclid_gather
 
 
 def resolve_device(device) -> torch.device:
@@ -89,6 +89,7 @@ class TopKResult:
     store_accesses: int          # deduplicated physical row reads
     store_fetches: int           # batched fetch() calls (modeled seeks)
     io_seconds: float            # batch-accounted modeled I/O
+    rounds: int = 0              # verification rounds (verifier calls)
 
 
 # ---------------------------------------------------------------------------
@@ -107,16 +108,15 @@ def numpy_verifier(rows: np.ndarray, qs: np.ndarray,
 def kernel_verifier(rows: np.ndarray, qs: np.ndarray, gather: np.ndarray,
                     *, device="cuda") -> np.ndarray:
     """Verification through the K1 euclid kernel on ``device`` (its plain
-    version for a CPU device).  The fetched rows go to the device once;
-    each query is distanced against its own candidate rows only — one
-    launch per active query, all with the same (B, T) shape.  The square
-    root is numpy's, as in a K1 brute force, so the two agree bitwise."""
+    version for a CPU device): one gathered launch per round.  The
+    round's fetched rows, its queries and the gather go to the device
+    once; each query is distanced against its own candidate rows only.
+    The square root is numpy's, as in a K1 brute force, so the two agree
+    bitwise."""
     dev = torch.device(device)
     rows_d = torch.as_tensor(np.asarray(rows), dtype=torch.float32).to(dev)
     qs_d = torch.as_tensor(np.asarray(qs), dtype=torch.float32).to(dev)
-    g = torch.as_tensor(np.asarray(gather, np.int64)).to(dev)
-    d2 = torch.stack([euclid_batch(rows_d[g[r]], qs_d[r])
-                      for r in range(g.shape[0])])
+    d2 = euclid_gather(rows_d, qs_d, np.asarray(gather, np.int64))
     return np.sqrt(np.maximum(d2.cpu().numpy(), 0.0))
 
 
@@ -250,6 +250,7 @@ def topk_verify(queries_raw, repr_dists, store: RawStore, *, k: int = 1,
         n_fin = np.isfinite(rd).sum(axis=1)
     pos = np.zeros(q_n, np.int64)
     acc = np.zeros(q_n, np.int64)
+    n_round = 0
     start_acc, start_fetch = store.accesses, store.fetches
 
     while True:
@@ -275,6 +276,7 @@ def topk_verify(queries_raw, repr_dists, store: RawStore, *, k: int = 1,
         else:                            # global ids straight off device
             cand = np.asarray(stream.take(aq, batch_size), np.int64)
         mask = cand >= 0
+        n_round += 1
         if dist_fn is not None:          # device-resident: no host fetch
             d = np.asarray(dist_fn(aq, cand))
         else:
@@ -303,7 +305,8 @@ def topk_verify(queries_raw, repr_dists, store: RawStore, *, k: int = 1,
                       raw_accesses=acc,
                       pruned_fraction=1.0 - acc / n,
                       store_accesses=total, store_fetches=n_fetch,
-                      io_seconds=store.modeled_io_seconds(total, n_fetch))
+                      io_seconds=store.modeled_io_seconds(total, n_fetch),
+                      rounds=n_round)
 
 
 def verify_candidates(queries_raw, cand_idx, store: RawStore, *,
@@ -355,7 +358,8 @@ def verify_candidates(queries_raw, cand_idx, store: RawStore, *,
     return TopKResult(indices=out_i, distances=out_d, raw_accesses=acc,
                       pruned_fraction=1.0 - acc / n,
                       store_accesses=total, store_fetches=n_fetch,
-                      io_seconds=store.modeled_io_seconds(total, n_fetch))
+                      io_seconds=store.modeled_io_seconds(total, n_fetch),
+                      rounds=1)
 
 
 # ---------------------------------------------------------------------------

@@ -13,6 +13,7 @@ one verification path and identical exactness guarantees.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Callable, Optional, Protocol, runtime_checkable
 
@@ -111,13 +112,8 @@ def topk_from_source(queries_raw, source: CandidateSource, store, *,
     n = width if total is None else int(total)
     if cs.seed_res is None:
         if total is not None and n != width and n != 0:
-            res = TopKResult(
-                indices=res.indices, distances=res.distances,
-                raw_accesses=res.raw_accesses,
-                pruned_fraction=1.0 - res.raw_accesses / n,
-                store_accesses=res.store_accesses,
-                store_fetches=res.store_fetches,
-                io_seconds=res.io_seconds)
+            res = dataclasses.replace(
+                res, pruned_fraction=1.0 - res.raw_accesses / n)
     else:
         seed = cs.seed_res
         acc = res.raw_accesses + seed.raw_accesses
@@ -127,5 +123,6 @@ def topk_from_source(queries_raw, source: CandidateSource, store, *,
             pruned_fraction=1.0 - acc / max(n, 1),
             store_accesses=res.store_accesses + seed.store_accesses,
             store_fetches=res.store_fetches + seed.store_fetches,
-            io_seconds=res.io_seconds + seed.io_seconds)
+            io_seconds=res.io_seconds + seed.io_seconds,
+            rounds=res.rounds + seed.rounds)
     return res

@@ -122,35 +122,42 @@ def build_seconds() -> float:
 
 
 class CudaKernel:
-    """One C entry point of the library plus its launch count.
+    """The C entry points of one kernel plus its one launch count.
 
     ``argtypes`` lists the entry's arguments without the trailing stream
     pointer, which every entry takes and :meth:`launch` supplies.
-    ``launches`` counts successful launches; only :meth:`launch` adds to
+    ``more`` maps further entry points of the same kernel to their
+    argtypes; ``launch(..., symbol=)`` picks one.  ``launches`` counts
+    successful launches of every entry; only :meth:`launch` adds to
     it."""
 
-    def __init__(self, name: str, symbol: str, argtypes: list):
+    def __init__(self, name: str, symbol: str, argtypes: list,
+                 more: dict | None = None):
         self.name = name
         self.symbol = symbol
-        self.argtypes = list(argtypes) + [ctypes.c_void_p]
+        self.argtypes = {s: list(a) + [ctypes.c_void_p]
+                         for s, a in {symbol: argtypes, **(more or {})}
+                         .items()}
         self.launches = 0
-        self._fn = None
+        self._fns: dict = {}
 
-    def _bind(self):
-        fn = getattr(load(), self.symbol)
-        fn.argtypes = self.argtypes
+    def _bind(self, symbol: str):
+        fn = getattr(load(), symbol)
+        fn.argtypes = self.argtypes[symbol]
         fn.restype = ctypes.c_int
-        self._fn = fn
+        self._fns[symbol] = fn
         return fn
 
-    def launch(self, device: torch.device, *args) -> None:
-        fn = self._fn or self._bind()
+    def launch(self, device: torch.device, *args,
+               symbol: str | None = None) -> None:
+        symbol = symbol or self.symbol
+        fn = self._fns.get(symbol) or self._bind(symbol)
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
             err = fn(*args, stream)
         if err:
-            raise RuntimeError(f"CUDA kernel {self.name} failed to launch: "
-                               f"cudaError_t {err}")
+            raise RuntimeError(f"CUDA kernel {self.name} ({symbol}) failed "
+                               f"to launch: cudaError_t {err}")
         self.launches += 1
 
 

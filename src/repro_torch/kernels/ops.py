@@ -15,7 +15,8 @@ import torch
 from repro_torch.core.breakpoints import lower_bounds, upper_bounds
 from repro_torch.core.sax import SAX, cell_table
 from repro_torch.core.ssax import SSAX
-from repro_torch.kernels.euclid import euclid_batch  # noqa: F401
+from repro_torch.kernels.euclid import (  # noqa: F401
+    euclid_batch, euclid_gather)
 from repro_torch.kernels.paa import paa_segments  # noqa: F401
 from repro_torch.kernels.sax_dist import sax_dist
 from repro_torch.kernels.ssax_dist import ssax_dist

@@ -1,4 +1,5 @@
-"""Plain PyTorch versions of the five kernels (the allclose ground truth).
+"""Plain PyTorch versions of the five kernels, K1 with both its entries
+(the allclose ground truth).
 
 Each mirrors its counterpart in the JAX package's ``kernels/ref.py``.
 A wrapper runs these for CPU tensors; the CPU tests hold them against
@@ -53,6 +54,15 @@ def euclid_ref(x, q):
     """(N, T) vs (T,) -> (N,) f32 squared Euclidean distances."""
     d = x.to(torch.float32) - q.to(torch.float32)[None, :]
     return d.square().sum(-1)
+
+
+def euclid_gather_ref(rows, q, gather):
+    """(U, T) rows, (Qa, T) queries, (Qa, B) int64 gather -> (Qa, B) f32:
+    each query's :func:`euclid_ref` over its own gathered rows."""
+    if not q.shape[0]:
+        return torch.empty(tuple(gather.shape), dtype=torch.float32)
+    return torch.stack([euclid_ref(rows[g], qi)
+                        for g, qi in zip(gather, q)])
 
 
 def windowed_euclid_ref(x, q, stride: int = 1):

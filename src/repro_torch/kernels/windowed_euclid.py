@@ -6,8 +6,10 @@ Replaces the Pallas kernel
 ``csrc/windowed_euclid.cu``.  Bound on the card: operations (2m flops
 per (query, window); the scan shape Q = 8, 2048 x 3600, m = 240,
 stride 4 is 6.61 GFLOP against 84.6 MB).  Design: one block per (row,
-tile of window starts) with the row's slab in shared memory, read once
-for all queries; per-window statistics in two passes, so an offset row
+tile of window starts) with the row's slab in shared memory, stored
+phase-major so that a warp's reads are free of bank conflicts at any
+stride, read once for all queries; several windows per thread, chosen
+from the shape; per-window statistics in two passes, so an offset row
 does not cancel (see the source).
 """
 

@@ -110,8 +110,9 @@ class SubseqResult:
     raw_accesses: np.ndarray     # (Q,) windows verified per query
     pruned_fraction: np.ndarray  # (Q,) 1 - verified / n_windows
     store_accesses: int          # deduplicated underlying-row reads
-    store_fetches: int           # batched fetch rounds (modeled seeks)
+    store_fetches: int           # fetch rounds that read a cold row
     io_seconds: float            # modeled I/O of the underlying reads
+    rounds: int = 0              # verification rounds (verifier calls)
 
 
 class SubseqEngine:
@@ -209,7 +210,7 @@ class SubseqEngine:
         if n_e is not None:
             rd = rd[:, :n_e]       # prefix-stable: as-of read is a slice
         nw = rd.shape[1]
-        acc = {"rows": 0, "fetches": 0, "io": 0.0}
+        acc = {"rows": 0, "fetches": 0, "io": 0.0, "rounds": 0}
         if exclusion <= 0:
             res = topk_verify(zq, rd, self.view, k=k, batch_size=bs,
                               verifier=self.verifier, merge=self.merge)
@@ -234,6 +235,7 @@ class SubseqEngine:
             acc["rows"] += res.store_accesses
             acc["fetches"] += res.store_fetches
             acc["io"] += res.io_seconds
+            acc["rounds"] += res.rounds
             ids, dists, full = self._suppress(res, k, exclusion)
             if full or k_fetch >= nw:
                 return self._wrap(ids, dists, res, nw, acc,
@@ -290,7 +292,8 @@ class SubseqEngine:
             res.store_accesses,
             store_fetches=acc["fetches"] if accumulated else
             res.store_fetches,
-            io_seconds=acc["io"] if accumulated else res.io_seconds)
+            io_seconds=acc["io"] if accumulated else res.io_seconds,
+            rounds=acc["rounds"] if accumulated else res.rounds)
 
     # -- brute-force baseline ---------------------------------------------
     def scan_topk(self, queries_raw, k: int = 1,

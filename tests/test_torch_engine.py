@@ -19,7 +19,8 @@ torch = pytest.importorskip("torch")
 from repro_torch.core import (  # noqa: E402
     from_reference, make_technique, rep_from_numpy)
 from repro_torch.core.engine import (  # noqa: E402
-    MatchEngine, merge_topk_device, merge_topk_numpy, topk_verify)
+    MatchEngine, kernel_verifier, merge_topk_device, merge_topk_numpy,
+    topk_verify)
 from repro_torch.core.matching import (  # noqa: E402
     RawStore, approximate_match, exact_match, pruning_power,
     tightness_of_lower_bound)
@@ -264,6 +265,42 @@ def test_launcher_dryrun_on_cpu(capsys):
     assert "exact k=8: 4/4 query frontiers == brute force" in out
 
 
+@pytest.mark.parametrize("U,Qa,B", [(700, 8, 256), (3, 2, 5), (1, 1, 1)])
+def test_kernel_verifier_cpu_equals_per_query_route(U, Qa, B):
+    """One gathered K1 call per round gives bitwise what one K1 call per
+    active query over its own gathered rows gave."""
+    rng = np.random.default_rng(U)
+    rows = rng.normal(size=(U, T)).astype(np.float32)
+    qs = rng.normal(size=(Qa, T)).astype(np.float32)
+    g = rng.integers(0, U, size=(Qa, B)).astype(np.int64)
+    got = kernel_verifier(rows, qs, g, device="cpu")
+    rt, qt = torch.from_numpy(rows), torch.from_numpy(qs)
+    want = np.sqrt(np.maximum(torch.stack([
+        ops.euclid_batch(rt[torch.from_numpy(g[r])], qt[r])
+        for r in range(Qa)]).numpy(), 0.0))
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("tech", TECHS)
+def test_kernel_verify_counts_one_round_per_fetch(corpora, tech):
+    """Whole series: every verification round is one store fetch and one
+    verifier call, and the exact answer equals the numpy brute force."""
+    Q, D = _data(corpora, tech)
+    calls = []
+
+    def counting(rows, qs, gather):
+        calls.append(gather.shape)
+        return kernel_verifier(rows, qs, gather, device="cpu")
+    eng = MatchEngine(make_technique(tech, T=T, W=W, L=L, r2_season=0.7),
+                      RawStore.ssd(D), verify="kernel", batch_size=32,
+                      device="cpu")
+    eng.verifier = counting
+    res = eng.topk(Q, k=8)
+    assert res.rounds == res.store_fetches == len(calls) > 0
+    want_i, _ = _bruteforce(Q, D, 8)
+    np.testing.assert_array_equal(res.indices, want_i)
+
+
 def test_engine_on_card_equals_kernel_bruteforce(corpora):
     """On the card every kernel of the path launches, and the exact
     answer equals a K1 brute force bitwise."""
@@ -277,6 +314,11 @@ def test_engine_on_card_equals_kernel_bruteforce(corpora):
     after = {n: k.launches for n, k in KERNELS.items()}
     for name in ("paa", "ssax_dist", "euclid"):
         assert after[name] > before[name], name
+    # one gathered K1 launch per verification round, one fetch per round
+    n0 = KERNELS["euclid"].launches
+    again = eng.topk(Q, k=32)
+    assert KERNELS["euclid"].launches - n0 == again.rounds \
+        == again.store_fetches > 0
     bf_i, bf_d = kernel_bruteforce(Q, D, 32, "cuda")
     np.testing.assert_array_equal(res.indices, bf_i)
     np.testing.assert_array_equal(res.distances, bf_d)

@@ -143,6 +143,54 @@ def test_euclid_query_batch_ragged_matches_reference(jref, Q, N, T):
                             interpret=True), TOL["euclid"])
 
 
+def _gather_inputs(U, Qa, B, T):
+    rows = RNG.normal(size=(U, T)).astype(np.float32)
+    q = RNG.normal(size=(Qa, T)).astype(np.float32)
+    return rows, q, RNG.integers(0, U, size=(Qa, B)).astype(np.int64)
+
+
+@pytest.mark.parametrize("U,Qa,B,T", [(2048, 8, 256, 96), (50, 3, 17, 961),
+                                      (1, 1, 1, 5), (300, 2, 64, 240)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_euclid_gather_plain_equals_per_query_batch(U, Qa, B, T, dtype):
+    """The gathered entry's plain version is, bitwise, one euclid_batch
+    per query over that query's gathered rows."""
+    rows, q, g = _gather_inputs(U, Qa, B, T)
+    dt = getattr(torch, dtype)
+    rt, qt = torch.from_numpy(rows).to(dt), torch.from_numpy(q).to(dt)
+    got = ops.euclid_gather(rt, qt, g)
+    assert got.dtype == torch.float32 and got.shape == (Qa, B)
+    want = torch.stack([ops.euclid_batch(rt[torch.from_numpy(g[a])], qt[a])
+                        for a in range(Qa)])
+    assert torch.equal(got, want)
+    assert torch.equal(ops.euclid_gather(rt, qt, torch.from_numpy(g)), got)
+
+
+@pytest.mark.parametrize("U,Qa,B,T", [(600, 4, 256, 480), (37, 3, 5, 97)])
+def test_euclid_gather_plain_matches_reference_verifier(jref, U, Qa, B, T):
+    """sqrt of the gathered plain version against the reference's
+    ``kernel_verifier`` (its Pallas euclid kernel in interpret mode)."""
+    from repro.core.engine import kernel_verifier as ref_verifier
+    rows, q, g = _gather_inputs(U, Qa, B, T)
+    got = np.sqrt(np.maximum(ops.euclid_gather(
+        torch.from_numpy(rows), torch.from_numpy(q), g).numpy(), 0.0))
+    _close(got, ref_verifier(rows, q, g), 1e-3)
+
+
+@pytest.mark.parametrize("bad,err", [
+    (np.zeros((2, 4), np.int64), ValueError),          # Qa mismatch
+    (np.zeros((3,), np.int64), ValueError),            # not 2-D
+    (np.zeros((3, 4), np.int32), TypeError),           # not int64
+    (np.full((3, 4), 10, np.int64), ValueError),       # past the rows
+    (np.full((3, 4), -1, np.int64), ValueError),       # negative
+    ([[0, 1]] * 3, TypeError),                         # not an array
+])
+def test_euclid_gather_rejects_bad_gather(bad, err):
+    rows, q = torch.zeros(10, 8), torch.zeros(3, 8)
+    with pytest.raises(err):
+        ops.euclid_gather(rows, q, bad)
+
+
 @pytest.mark.parametrize("Q,N,T,m,stride", WINDOWED_SHAPES)
 def test_windowed_euclid_plain_matches_reference(jref, Q, N, T, m, stride):
     x = RNG.normal(size=(N, T)).astype(np.float32)
@@ -199,6 +247,8 @@ def test_wrappers_reject_bad_inputs():
 def test_cpu_tensors_never_launch():
     before = {n: k.launches for n, k in KERNELS.items()}
     ops.euclid_batch(torch.zeros(3, 8), torch.zeros(8))
+    ops.euclid_gather(torch.zeros(3, 8), torch.zeros(2, 8),
+                      np.zeros((2, 4), np.int64))
     ops.paa_segments(torch.zeros(3, 8), 4)
     ops.windowed_euclid(torch.zeros(3, 8), torch.zeros(4))
     assert {n: k.launches for n, k in KERNELS.items()} == before
@@ -279,7 +329,9 @@ def test_euclid_kernel_matches_plain(cuda, Q, N, T, dtype):
 
 def test_euclid_kernel_reduction_order_fixed(cuda):
     """A (query, row) distance is bit-identical whatever batch it is
-    computed in: alone, in a verification batch, or in a corpus sweep."""
+    computed in and through either entry: alone, in a verification
+    batch, gathered from a round's union of rows (any Qa, B and U), or
+    in a corpus sweep."""
     x = torch.from_numpy(RNG.normal(size=(2000, 960)).astype(
         np.float32)).to(cuda)
     q = torch.from_numpy(RNG.normal(size=(8, 960)).astype(
@@ -290,6 +342,36 @@ def test_euclid_kernel_reduction_order_fixed(cuda):
     assert torch.equal(part[0], full[3, rows])
     one = ops.euclid_batch(x[1999:].contiguous(), q[7]).cpu()
     assert torch.equal(one[0], full[7, 1999])
+    for qa, b, u in ((8, 256, 2000), (3, 7, 40), (1, 1, 1), (5, 600, 900)):
+        union = torch.from_numpy(RNG.choice(2000, size=u, replace=False))
+        qi = torch.from_numpy(RNG.choice(8, size=qa, replace=False))
+        g = RNG.integers(0, u, size=(qa, b)).astype(np.int64)
+        got = ops.euclid_gather(x[union.to(cuda)].contiguous(),
+                                q[qi.to(cuda)].contiguous(), g).cpu()
+        want = full[qi[:, None], union[torch.from_numpy(g)]]
+        assert torch.equal(got, want), (qa, b, u)
+
+
+@pytest.mark.parametrize("T", [960, 240, 961, 12_292])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_euclid_gather_kernel_equals_all_pairs(cuda, T, dtype):
+    """One gathered launch per round: bitwise the all-pairs kernel on
+    the gathered rows, and its plain version within tolerance.  At
+    T = 12,292 an f32 query takes more than 48 KB of shared memory."""
+    rows, q, g = _gather_inputs(2048, 8, 256, T)
+    dt = getattr(torch, dtype)
+    rt = torch.from_numpy(rows).to(cuda, dt)
+    qt = torch.from_numpy(q).to(cuda, dt)
+    n0 = KERNELS["euclid"].launches
+    got = ops.euclid_gather(rt, qt, g)
+    torch.cuda.synchronize()
+    assert KERNELS["euclid"].launches == n0 + 1
+    gt = torch.from_numpy(g).to(cuda)
+    assert torch.equal(got, ops.euclid_gather(rt, qt, gt))
+    every = ops.euclid_batch(rt, qt)
+    assert torch.equal(got, torch.gather(every, 1, gt))
+    tol = TOL["euclid" if dtype == "float32" else "euclid_bf16"]
+    _close(got.cpu(), ref.euclid_gather_ref(rt, qt, gt).cpu(), tol)
 
 
 @pytest.mark.parametrize("Q,N,T,m,stride",
@@ -304,6 +386,50 @@ def test_windowed_euclid_kernel_matches_plain(cuda, Q, N, T, m, stride):
     assert KERNELS["windowed_euclid"].launches == n0 + 1
     _close(got.cpu(), ref.windowed_euclid_ref(x, q, stride).cpu(),
            TOL["windowed"])
+
+
+@pytest.mark.parametrize("Q,N,T,m,stride",
+                         [(8, 64, 3600, 240, 1), (8, 64, 3600, 240, 3),
+                          (8, 64, 3600, 240, 7), (8, 38, 3600, 240, 4),
+                          (3, 5, 240, 240, 1), (3, 5, 240, 240, 4),
+                          (2, 3, 300, 20, 33)])
+def test_windowed_euclid_kernel_strides_and_chunk(cuda, Q, N, T, m, stride):
+    """K5 at strides 1, 3, 4 and 7, at scan_topk's 38-row chunk, at m = T
+    and with a stride beyond m: the phase-major slab and the windows per
+    thread that the shape picks agree with the plain version."""
+    x = torch.from_numpy(RNG.normal(size=(N, T)).astype(np.float32)).to(cuda)
+    q = torch.from_numpy(_znorm_queries(Q, m)).to(cuda)
+    _close(ops.windowed_euclid(x, q, stride).cpu(),
+           ref.windowed_euclid_ref(x, q, stride).cpu(), TOL["windowed"])
+
+
+@pytest.mark.parametrize("stride", [4, 3, 1])
+def test_windowed_euclid_kernel_scan_shape_rows_slice(cuda, stride):
+    """One launch over the whole scan corpus (2,048 x 3,600, m = 240, 8
+    queries), as the smoke run times it; its first 64 rows against the
+    plain version on those rows (a row's windows depend on that row
+    alone)."""
+    x = torch.from_numpy(RNG.normal(size=(2048, 3600)).astype(
+        np.float32)).to(cuda)
+    q = torch.from_numpy(_znorm_queries(8, 240)).to(cuda)
+    got = ops.windowed_euclid(x, q, stride)[:, :64]
+    _close(got.cpu(), ref.windowed_euclid_ref(x[:64], q, stride).cpu(),
+           TOL["windowed"])
+
+
+@pytest.mark.parametrize("stride", [1, 3, 7])
+def test_windowed_euclid_kernel_offset_and_constant_rows_any_stride(
+        cuda, stride):
+    x = torch.from_numpy(RNG.normal(size=(16, 3600)).astype(
+        np.float32)).to(cuda)
+    q = torch.from_numpy(_znorm_queries(8, 240)).to(cuda)
+    off = x + 1000.0
+    _close(ops.windowed_euclid(off, q, stride).cpu(),
+           ref.windowed_euclid_ref(off, q, stride).cpu(), TOL["windowed"])
+    const = torch.full((2, 1000), 2.5, device=cuda)
+    got = ops.windowed_euclid(const, q, stride).cpu()
+    want = q.square().sum(-1).cpu()[:, None, None].expand_as(got)
+    _close(got, want, TOL["windowed"])
 
 
 def test_windowed_euclid_kernel_offset_and_constant_rows(cuda):
@@ -328,6 +454,19 @@ def test_kernels_reject_wrong_dtypes_on_card(cuda):
     with pytest.raises(TypeError):
         ops.sax_dist(torch.zeros(4, 8, device=cuda, dtype=torch.int64),
                      torch.zeros(8, 4, device=cuda))
+    with pytest.raises(TypeError):
+        ops.euclid_gather(torch.zeros(4, 8, device=cuda,
+                                      dtype=torch.float64),
+                          torch.zeros(1, 8, device=cuda,
+                                      dtype=torch.float64),
+                          np.zeros((1, 2), np.int64))
+    with pytest.raises(ValueError):
+        ops.euclid_gather(torch.zeros(4, 8, device=cuda),
+                          torch.zeros(1, 8, device=cuda),
+                          torch.full((1, 2), 4, device=cuda))
+    with pytest.raises(ValueError):       # a query beyond shared memory
+        ops.euclid_batch(torch.zeros(2, 58_113, device=cuda),
+                         torch.zeros(58_113, device=cuda))
     with pytest.raises(TypeError):
         ops.windowed_euclid(torch.zeros(4, 8, device=cuda,
                                         dtype=torch.float64),

@@ -301,6 +301,27 @@ def test_kernel_verify_equals_window_distances(corpus, verify):
         res.distances, np.take_along_axis(d, want, 1).astype(np.float64))
 
 
+@pytest.mark.parametrize("excl", [0, M // 2])
+def test_kernel_verify_one_call_per_round(corpus, excl):
+    """Windows: every verification round is one verifier call (one K1
+    launch on the card); a round whose rows all sit in the row buffer
+    bills no fetch, so store_fetches <= rounds, with equality when the
+    buffer is off."""
+    X, Q = corpus
+    for cache_rows in (1024, 0):
+        view = WindowView(_enc("ssax"), X, stride=3, cache_rows=cache_rows,
+                          device="cpu")
+        eng = SubseqEngine(view, verify="kernel", batch_size=16)
+        calls = []
+        inner = eng.verifier
+        eng.verifier = lambda *a: calls.append(1) or inner(*a)
+        res = eng.topk(Q, k=4, exclusion=excl)
+        assert res.rounds == len(calls) > 0
+        assert res.store_fetches <= res.rounds
+        if cache_rows == 0:
+            assert res.store_fetches == res.rounds
+
+
 def test_scan_topk_agrees_with_engine(corpus):
     X, Q = corpus
     eng = _engine(X, "sax", 2)
@@ -355,11 +376,22 @@ def test_subseq_on_card_equals_kernel_bruteforce(corpus):
     view, eng = make_subseq_engine("ssax", X, m=M, stride=3, L=10,
                                    device="cuda")
     res = eng.topk(Q, k=5)
+    n_k1 = KERNELS["euclid"].launches - before["euclid"]
     scan = eng.scan_topk(Q, k=5)
     after = {n: k.launches for n, k in KERNELS.items()}
     for name in KERNELS:
         if name != "sax_dist":
             assert after[name] > before[name], name
+    # one gathered K1 launch per verification round; with the row buffer
+    # off, every round is one fetch
+    assert n_k1 == res.rounds > 0 and res.store_fetches <= res.rounds
+    _, cold = make_subseq_engine("ssax", X, m=M, stride=3, L=10,
+                                 device="cuda")
+    cold.view.cache_rows = 0
+    n0 = KERNELS["euclid"].launches
+    again = cold.topk(Q, k=5)
+    assert KERNELS["euclid"].launches - n0 == again.rounds \
+        == again.store_fetches
     d = window_distances(X, M, 3, eng.normalize_queries(Q), "cuda")
     want = np.argsort(d, axis=1, kind="stable")[:, :5]
     np.testing.assert_array_equal(res.window_ids, want)
