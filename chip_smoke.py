@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py          # every phase, on one card
     python3 chip_smoke.py --k5     # build, then time K5 alone
+    python3 chip_smoke.py --k2     # build, then time K2 alone (Q = 1..64)
     python3 chip_smoke.py --split  # build, then the main path's topk split
 
 Phases, each failing loudly with a nonzero exit:
@@ -13,7 +14,9 @@ Phases, each failing loudly with a nonzero exit:
    windowed_euclid) against its plain PyTorch version on the card at
    both paths' shapes (whole series and windows) plus ragged ones;
    time the kernel, the plain version and, where one exists, a single
-   PyTorch call computing the same function.  K1's gathered entry runs
+   PyTorch call computing the same function.  K2 runs one query and
+   the path's 8 queries in one batched launch at both sweep shapes,
+   every batched row bitwise equal to its one-query launch.  K1's gathered entry runs
    at the verification round shape (T = 960, 240, bf16, 961) and must
    equal its all-pairs entry bitwise; it is timed on the device (a
    CUDA graph, rows from HBM and rows in L2) and as one host-clock
@@ -39,7 +42,8 @@ Phases, each failing loudly with a nonzero exit:
    Phases 3 and 4 print the split of one warm topk call (sweep, host
    argsort, verification loop) and fail unless every call's K1 launches
    equal its verification rounds (one gathered launch per round; on
-   whole series every round is also one store fetch).
+   whole series every round is also one store fetch) and every sSAX
+   call made one K2 launch (one batched sweep for all its queries).
 5. Print each path's launch counts (each kernel of a path > 0) and the
    ``{"kernels": [...]}`` line with the launches of both paths.
 6. Print the card's name and power limit, then the result line.
@@ -58,6 +62,7 @@ from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
 F32_FLOPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
+F32_ISSUE_PER_S = 132 * 128 * 1.98e9   # FP32 lane-instructions, boost clock
 
 N_MAIN = 1_000_000            # corpus rows for sSAX / SAX
 N_SMALL = 65_536              # corpus rows for tSAX / stSAX
@@ -168,6 +173,73 @@ def k5_shapes(torch, ops, ref, dev):
             f"{out[name]['ns_per_window']:.5f} ns per window, bound "
             f"{b[0]:.5f} ms ({b[1]})")
     return out
+
+
+def k2_shapes(torch, ops, ref, randint, randn):
+    """K2 at the main path's sweep shape (1,000,000 x (L + W) = 10 + 48)
+    and the subsequence path's (1,722,368 windows x (10 + 24)), with
+    make_technique's alphabets (16 season, 32 residual symbols): one
+    query (``ssax_dist``) and the path's 8 queries in one batched launch
+    (``ssax_dist_batch``).  Each is held against the plain version, and
+    every batched row bitwise against its one-query launch; then a
+    ragged shape.  Times are device times (events, back to back), beside
+    the bound as reckoned (symbol bytes once, tables and output, against
+    Q x 6 operations per cell) and the issue floor (Q x 5 FP32
+    instructions per cell over 132 SMs x 128 lanes at the data sheet's
+    1.98 GHz).  Returns the report's row: the main path's 8-query
+    launch."""
+    n_win = (SUB_T - SUB_M) // SUB_STRIDE + 1
+    a_s, a_r, tol, row, err = 16, 32, TOL["ssax_dist"], None, 0.0
+    for name, n, w in (("main", N_MAIN, W),
+                       ("subseq", SUB_ROWS * n_win, SUB_M // L)):
+        seas, res = randint(a_s, (n, L)), randint(a_r, (n, w))
+        tabs = (randn(N_QUERIES, L, a_s), randn(N_QUERIES, L, a_s),
+                randn(N_QUERIES, w, a_r), randn(N_QUERIES, w, a_r))
+        one = [t[0] for t in tabs]
+        got = ops.ssax_dist_batch(seas, res, *tabs)
+        err = max(err, check(f"ssax_dist {name} Q={N_QUERIES}", got,
+                             ref.ssax_dist_batch_ref(seas, res, *tabs), tol))
+        err = max(err, check(f"ssax_dist {name} Q=1",
+                             ops.ssax_dist(seas, res, *one),
+                             ref.ssax_dist_ref(seas, res, *one), tol))
+        for q in range(N_QUERIES):
+            if not torch.equal(got[q], ops.ssax_dist(
+                    seas, res, *(t[q] for t in tabs))):
+                fail(f"ssax_dist {name}: batched row {q} differs from its "
+                     f"one-query launch")
+        routes = {1: (lambda: ops.ssax_dist(seas, res, *one),
+                      lambda: ref.ssax_dist_ref(seas, res, *one)),
+                  N_QUERIES: (lambda: ops.ssax_dist_batch(seas, res, *tabs),
+                              lambda: ref.ssax_dist_batch_ref(seas, res,
+                                                              *tabs))}
+        for nq, (fn, plain) in routes.items():
+            cells = nq * n * L * w
+            r = dict(ms=time_ms(torch, fn, 50 if nq == 1 else 20),
+                     plain_ms=time_ms(torch, plain, 2, warmup=1),
+                     library_ms=None,
+                     bound=bound_ms(n * (L + w) * 4 + nq * n * 4
+                                    + nq * 2 * (L * a_s + w * a_r) * 4,
+                                    6 * cells),
+                     floor_ms=5 * cells / F32_ISSUE_PER_S * 1e3,
+                     shape=f"{name}: seas ({n}, {L}), res ({n}, {w}) i32, "
+                           f"Q={nq}" + (" in one launch" if nq > 1 else ""))
+            say(f"kernel ssax_dist [{r['shape']}]: {r['ms']:.5f} ms "
+                f"(events, back to back), plain {r['plain_ms']:.4f} ms, "
+                f"bound {r['bound'][0]:.5f} ms ({r['bound'][1]}), issue "
+                f"floor {r['floor_ms']:.5f} ms (5 FP32 instructions per "
+                f"cell)")
+            if name == "main" and nq == N_QUERIES:
+                row = r
+        say(f"ssax_dist {name}: every row of the {N_QUERIES}-query launch == "
+            f"its one-query launch, bitwise")
+        del seas, res, got
+    rag = (randint(a_s, (300, L)), randint(a_r, (300, 17)),
+           randn(3, L, a_s), randn(3, L, a_s), randn(3, 17, a_r),
+           randn(3, 17, a_r))
+    err = max(err, check("ssax_dist ragged", ops.ssax_dist_batch(*rag),
+                         ref.ssax_dist_batch_ref(*rag), tol))
+    row["max_abs_err"] = err
+    return row
 
 
 def host_ms(torch, fn, iters: int = 200, warmup: int = 5) -> float:
@@ -287,10 +359,10 @@ def check(name: str, got, want, tol: float) -> float:
     return float(err.max()) if err.numel() else 0.0
 
 
-def kernel_phase(torch, ops, ref, dev):
-    """Phase 2: every kernel against its plain version, with times."""
-    g = torch.Generator(device=dev).manual_seed(0)
-    rows = {}
+def random_makers(torch, dev, seed: int):
+    """``randint(hi, shape)`` (int32) and ``randn(*shape)`` on ``dev``
+    from one seeded generator."""
+    g = torch.Generator(device=dev).manual_seed(seed)
 
     def randint(hi, shape):
         return torch.randint(0, hi, shape, generator=g, device=dev,
@@ -298,6 +370,31 @@ def kernel_phase(torch, ops, ref, dev):
 
     def randn(*shape):
         return torch.randn(*shape, generator=g, device=dev)
+    return randint, randn
+
+
+def k2_scaling(torch, ops, dev):
+    """``--k2``: K2's device time at the main path's sweep shape for Q =
+    1 to 64 queries in one launch (events, back to back), per query and
+    against the issue floor, to show where the time per query goes as
+    the symbols' bytes are shared by more queries."""
+    randint, randn = random_makers(torch, dev, 2)
+    seas, res = randint(16, (N_MAIN, L)), randint(32, (N_MAIN, W))
+    for nq in (1, 2, 4, 8, 16, 64):
+        tabs = (randn(nq, L, 16), randn(nq, L, 16), randn(nq, W, 32),
+                randn(nq, W, 32))
+        ms = time_ms(torch, lambda: ops.ssax_dist_batch(seas, res, *tabs),
+                     20)
+        floor = 5 * nq * N_MAIN * L * W / F32_ISSUE_PER_S * 1e3
+        say(f"K2 Q={nq} in one launch at ({N_MAIN}, {L} + {W}): {ms:.5f} "
+            f"ms, {ms / nq:.5f} ms per query, issue floor {floor:.5f} ms "
+            f"({floor / ms:.0%} of it)")
+
+
+def kernel_phase(torch, ops, ref, dev):
+    """Phase 2: every kernel against its plain version, with times."""
+    randint, randn = random_makers(torch, dev, 0)
+    rows = {}
 
     # K4 paa at the encode shape, a ragged shape and bf16
     x = randn(N_MAIN, T)
@@ -339,25 +436,9 @@ def kernel_phase(torch, ops, ref, dev):
         shape=f"sym ({N_MAIN}, {W}) i32, table ({W}, {A})")
     del sym
 
-    # K2 ssax_dist at the sweep shape (one query) and ragged
-    As, Ar = 16, 32
-    args = (randint(As, (N_MAIN, L)), randint(Ar, (N_MAIN, W)),
-            randn(L, As), randn(L, As), randn(W, Ar), randn(W, Ar))
-    err = check("ssax_dist", ops.ssax_dist(*args), ref.ssax_dist_ref(*args),
-                TOL["ssax_dist"])
-    rag = (randint(As, (300, L)), randint(Ar, (300, 17)), randn(L, As),
-           randn(L, As), randn(17, Ar), randn(17, Ar))
-    err = max(err, check("ssax_dist ragged", ops.ssax_dist(*rag),
-                         ref.ssax_dist_ref(*rag), TOL["ssax_dist"]))
-    rows["ssax_dist"] = dict(
-        max_abs_err=err,
-        ms=time_ms(torch, lambda: ops.ssax_dist(*args), 50),
-        plain_ms=time_ms(torch, lambda: ref.ssax_dist_ref(*args), 5),
-        library_ms=None,
-        bound=bound_ms(N_MAIN * (L + W) * 4 + 2 * (L * As + W * Ar) * 4
-                       + N_MAIN * 4, 6 * N_MAIN * L * W),
-        shape=f"seas ({N_MAIN}, {L}), res ({N_MAIN}, {W}) i32")
-    del args
+    # K2 ssax_dist at both paths' sweep shapes (one query, and the path's
+    # 8 queries in one batched launch) and ragged
+    rows["ssax_dist"] = k2_shapes(torch, ops, ref, randint, randn)
 
     # K1 euclid at the verification shape (one query against one batch),
     # a query batch, a ragged shape and bf16
@@ -460,11 +541,6 @@ def kernel_phase(torch, ops, ref, dev):
     sub["sax_dist"] = check("sax_dist subseq", ops.sax_dist(sym, tab),
                             ref.sax_dist_ref(sym, tab), TOL["sax_dist"])
     del sym
-    args = (randint(As, (n_sub, L)), randint(Ar, (n_sub, w_sub)),
-            randn(L, As), randn(L, As), randn(w_sub, Ar), randn(w_sub, Ar))
-    sub["ssax_dist"] = check("ssax_dist subseq", ops.ssax_dist(*args),
-                             ref.ssax_dist_ref(*args), TOL["ssax_dist"])
-    del args
     xv, qv = randn(BATCH, SUB_M), randn(1, SUB_M)
     sub["euclid"] = check("euclid subseq verify", ops.euclid_batch(xv, qv),
                           plain_euclid(xv, qv), TOL["euclid"])
@@ -476,8 +552,8 @@ def kernel_phase(torch, ops, ref, dev):
     for name, e in sub.items():
         rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], e)
     say(f"kernels at the subsequence shapes agree with their plain "
-        f"versions: paa ({n_win}, {SUB_M}) -> {w_sub}; sax_dist and "
-        f"ssax_dist over {n_sub} windows at W={w_sub}; euclid ({BATCH}, "
+        f"versions: paa ({n_win}, {SUB_M}) -> {w_sub}; sax_dist over "
+        f"{n_sub} windows at W={w_sub} (ssax_dist above); euclid ({BATCH}, "
         f"{SUB_M}) x 1 and (65536, {SUB_M}) x {N_QUERIES}; max abs err "
         f"{sub}")
     for name, r in rows.items():
@@ -490,8 +566,8 @@ def kernel_phase(torch, ops, ref, dev):
 
 def split(torch, np, dev, engines, Q):
     """Where one warm 8-query topk call's wall time goes, for sSAX and
-    SAX at k = 32 (host clock): the sweep (query encode, one K2/K3 launch
-    per query, bounds to the host), the host's stable argsort of the
+    SAX at k = 32 (host clock): the sweep (query encode, one K2 launch
+    for all queries or one K3 launch per query, bounds to the host), the host's stable argsort of the
     (Q, N) bounds, and the verification loop (fetch, K1, merge) that is
     the rest."""
     for tech in ("ssax", "sax"):
@@ -568,6 +644,8 @@ def main_path(torch, np, dev):
     counts = launch_counts()
     say(f"main path launches: {counts}")
     rounds_check("main path", results.values(), exact_fetch=True)
+    sweep_check("main path", [c for (tech, _), (_, _, c) in results.items()
+                              if tech == "ssax"])
 
     split(torch, np, dev, engines, Q)
     engines.clear()
@@ -602,7 +680,8 @@ def main_path(torch, np, dev):
                 f"== plain brute force on {compared}/{N_QUERIES} queries "
                 f"(others near-tied); raw rows/query {acc:.1f}, pruned "
                 f"fraction {res.pruned_fraction.mean():.6f}, "
-                f"{res.store_fetches} fetches; topk wall {wall:.3f} s; "
+                f"{res.rounds} rounds, {res.store_fetches} fetches; topk "
+                f"wall {wall:.3f} s; "
                 f"launches {calls}")
     return counts
 
@@ -664,9 +743,12 @@ def subseq_path(torch, np, dev):
     t_app_q = time.perf_counter() - t0
     counts = launch_counts()
     say(f"subsequence path launches: {counts}")
+    app_calls = {c: v - before[c] for c, v in counts.items()}
     rounds_check("subsequence path", [*results.values(), (
-        res_app, None, {c: v - before[c] for c, v in counts.items()})],
-        exact_fetch=False)
+        res_app, None, app_calls)], exact_fetch=False)
+    sweep_check("subsequence path", [
+        c for (tech, _, _), (_, _, c) in results.items() if tech == "ssax"]
+        + [app_calls])
 
     # where one sSAX k = 8 call's wall time goes (host clock, after the
     # counted run): the sweep, the host's stable argsort of the (Q,
@@ -720,7 +802,8 @@ def subseq_path(torch, np, dev):
             + f": exact == K1 brute force bitwise; snippet localized "
             f"{loc}/{N_QUERIES}; windows/query verified "
             f"{res.raw_accesses.mean():.1f}, pruned fraction "
-            f"{res.pruned_fraction.mean():.6f}, rows read "
+            f"{res.pruned_fraction.mean():.6f}, {res.rounds} rounds, rows "
+            f"read "
             f"{res.store_accesses}/{n_rows[tech]}, modeled ssd I/O "
             f"{res.io_seconds * 1e3:.3f} ms; topk wall {wall:.3f} s; "
             f"launches {calls}")
@@ -786,6 +869,17 @@ def rounds_check(path: str, calls, exact_fetch: bool):
         f"store fetches {fetches}")
 
 
+def sweep_check(path: str, calls):
+    """One batched K2 launch per sSAX sweep: every sSAX topk call sweeps
+    all its queries once, so it must make exactly one K2 launch."""
+    launches = [c["ssax_dist"] for c in calls]
+    if any(n != 1 for n in launches):
+        fail(f"{path}: sSAX topk calls made {launches} K2 launches, not one "
+             f"each")
+    say(f"{path}: K2 launches {sum(launches)} == sSAX sweep calls "
+        f"{len(launches)}")
+
+
 def plain_bruteforce(torch, np, ref, Q, D, dev):
     """(Q, N) f32 distances through the plain version of K1."""
     step = 1 << 18
@@ -829,9 +923,12 @@ def main():
     _lib.load()
     say(f"phase 1: kernels built from {_lib.CSRC.relative_to(root)} in "
         f"{_lib.build_seconds():.1f} s -> {_lib.library_path().parent}")
-    if sys.argv[1:] in (["--k5"], ["--split"]):
+    if sys.argv[1:] in (["--k5"], ["--k2"], ["--split"]):
         if sys.argv[1] == "--k5":
             k5_shapes(torch, ops, ref, dev)
+        elif sys.argv[1] == "--k2":
+            k2_shapes(torch, ops, ref, *random_makers(torch, dev, 0))
+            k2_scaling(torch, ops, dev)
         else:
             split_only(torch, np, dev)
         return

@@ -19,7 +19,8 @@ from repro_torch.kernels.euclid import (  # noqa: F401
     euclid_batch, euclid_gather)
 from repro_torch.kernels.paa import paa_segments  # noqa: F401
 from repro_torch.kernels.sax_dist import sax_dist
-from repro_torch.kernels.ssax_dist import ssax_dist
+from repro_torch.kernels.ssax_dist import (  # noqa: F401
+    ssax_dist, ssax_dist_batch)
 from repro_torch.kernels import windowed_euclid as _windowed
 
 # -inf - -inf would poison the kernel max; clamp to a huge negative
@@ -36,15 +37,18 @@ def make_sax_query_table(query_syms, breakpoints):
 
 def make_ssax_query_tables(q_seas, q_res, b_seas, b_res):
     """Query-conditioned (t1, t2, u1, u2) term tables for the sSAX kernel,
-    f32, with infinities clamped to -+3.4e38/4."""
+    f32, with infinities clamped to -+3.4e38/4: (L,)/(W,) query symbols
+    give (L, A_seas)/(W, A_res) tables, and a (Q, L)/(Q, W) batch the
+    (Q, L, A_seas)/(Q, W, A_res) tables, each query's equal to its own
+    tables bitwise."""
     dev = q_seas.device
     lo_s, hi_s = lower_bounds(b_seas.to(dev)), upper_bounds(b_seas.to(dev))
     lo_r, hi_r = lower_bounds(b_res.to(dev)), upper_bounds(b_res.to(dev))
     qs, qr = q_seas.long(), q_res.long()
-    t1 = lo_s[qs][:, None] - hi_s[None, :]          # (L, A_seas)
-    t2 = lo_s[None, :] - hi_s[qs][:, None]
-    u1 = lo_r[qr][:, None] - hi_r[None, :]          # (W, A_res)
-    u2 = lo_r[None, :] - hi_r[qr][:, None]
+    t1 = lo_s[qs][..., None] - hi_s                  # ([Q,] L, A_seas)
+    t2 = lo_s - hi_s[qs][..., None]
+    u1 = lo_r[qr][..., None] - hi_r                  # ([Q,] W, A_res)
+    u2 = lo_r - hi_r[qr][..., None]
     return tuple(torch.nan_to_num(t.to(torch.float32), nan=0.0, neginf=_BIG,
                                   posinf=-_BIG).contiguous()
                  for t in (t1, t2, u1, u2))
@@ -55,9 +59,10 @@ def make_ssax_query_tables(q_seas, q_res, b_seas, b_res):
 def make_pairwise(encoder):
     """``(rq, rx) -> (Q, N)`` lower bounds for ``MatchEngine(pairwise=)``.
 
-    SAX sweeps through K3 and sSAX through K2, one launch per query, with
-    the encoder's scale and square root applied after; tSAX and stSAX have
-    no sweep kernel and keep their plain ``pairwise_distance``."""
+    SAX sweeps through K3, one launch per query, and sSAX through K2, one
+    launch for all queries, with the encoder's scale and square root
+    applied after; tSAX and stSAX have no sweep kernel and keep their
+    plain ``pairwise_distance``."""
     if isinstance(encoder, SAX):
         scale = math.sqrt(encoder.T / encoder.W)
 
@@ -72,11 +77,9 @@ def make_pairwise(encoder):
 
         def ssax_pairwise(rq, rx):
             (sq, wq), (sx, wx) = rq, rx
-            bs, br = encoder.b_seas, encoder.b_res
-            d2 = torch.stack([
-                ssax_dist(sx, wx, *make_ssax_query_tables(s, w, bs, br))
-                for s, w in zip(sq, wq)])
-            return scale * torch.sqrt(d2)
+            tabs = make_ssax_query_tables(sq, wq, encoder.b_seas,
+                                          encoder.b_res)
+            return scale * torch.sqrt(ssax_dist_batch(sx, wx, *tabs))
         return ssax_pairwise
     return encoder.pairwise_distance
 

@@ -1,5 +1,5 @@
-"""Plain PyTorch versions of the five kernels, K1 with both its entries
-(the allclose ground truth).
+"""Plain PyTorch versions of the five kernels, K1 and K2 with both their
+entries (the allclose ground truth).
 
 Each mirrors its counterpart in the JAX package's ``kernels/ref.py``.
 A wrapper runs these for CPU tensors; the CPU tests hold them against
@@ -41,6 +41,17 @@ def ssax_dist_ref(seas_syms, res_syms, t1, t2, u1, u2):
                                          c2[:, :, None] + d2[:, None, :]),
                            0.0)
     return cell.square().sum(dim=(1, 2))
+
+
+def ssax_dist_batch_ref(seas_syms, res_syms, t1, t2, u1, u2):
+    """:func:`ssax_dist_ref` for Q queries: (Q, L, A_seas) ``t1``/``t2``
+    and (Q, W, A_res) ``u1``/``u2`` -> (Q, N) f32, each row that query's
+    :func:`ssax_dist_ref`."""
+    if not t1.shape[0]:
+        return torch.empty((0, seas_syms.shape[0]), dtype=torch.float32,
+                           device=seas_syms.device)
+    return torch.stack([ssax_dist_ref(seas_syms, res_syms, *tabs)
+                        for tabs in zip(t1, t2, u1, u2)])
 
 
 def paa_ref(x, n_segments: int):

@@ -138,6 +138,36 @@ def test_make_pairwise_matches_plain_sweep(corpora, tech):
         np.testing.assert_array_equal(a.distances, b.distances)
 
 
+def test_make_pairwise_ssax_one_batch_call_per_sweep(corpora, monkeypatch):
+    """The sSAX sweep makes one batched K2 call for all queries, and its
+    (Q, N) bounds equal the per-query route (one K2 call per query's
+    tables, then scale and square root) bitwise."""
+    Q, D = _data(corpora, "ssax")
+    enc = make_technique("ssax", T=T, W=W, L=L, r2_season=0.7)
+    rep = enc.encode(torch.from_numpy(D))
+    rq = enc.encode(torch.from_numpy(Q))
+    calls = []
+    batch = ops.ssax_dist_batch
+
+    def counting(*args):
+        calls.append(args[2].shape)
+        return batch(*args)
+    monkeypatch.setattr(ops, "ssax_dist_batch", counting)
+    pw = ops.make_pairwise(enc)
+    got = pw(rq, rep)
+    assert calls == [(NQ, L, len(enc.b_seas) + 1)]
+    scale = np.sqrt(T / (W * L))
+    want = torch.stack([scale * torch.sqrt(ops.ssax_dist(
+        *rep, *ops.make_ssax_query_tables(s, w, enc.b_seas, enc.b_res)))
+        for s, w in zip(*rq)])
+    assert got.shape == (NQ, N) and torch.equal(got, want)
+    eng = MatchEngine(enc, RawStore.ssd(D), verify="numpy", pairwise=pw,
+                      device="cpu")
+    calls.clear()
+    eng.topk(Q, k=8)
+    assert len(calls) == 1
+
+
 def test_make_pairwise_keeps_plain_sweep_without_kernel():
     for tech in ("tsax", "stsax"):
         enc = make_technique(tech, T=T, W=W, L=L)
@@ -320,5 +350,21 @@ def test_engine_on_card_equals_kernel_bruteforce(corpora):
     assert KERNELS["euclid"].launches - n0 == again.rounds \
         == again.store_fetches > 0
     bf_i, bf_d = kernel_bruteforce(Q, D, 32, "cuda")
+    np.testing.assert_array_equal(res.indices, bf_i)
+    np.testing.assert_array_equal(res.distances, bf_d)
+
+
+def test_engine_on_card_one_k2_launch_per_sweep(corpora):
+    """On the card an sSAX topk call sweeps all its queries through one
+    K2 launch, and answers as the K1 brute force does."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels run only there")
+    Q, D = _data(corpora, "ssax")
+    from repro_torch.launch.match import make_engine
+    eng = make_engine("ssax", D, device="cuda")
+    n0 = KERNELS["ssax_dist"].launches
+    res = eng.topk(Q, k=8)
+    assert KERNELS["ssax_dist"].launches - n0 == 1
+    bf_i, bf_d = kernel_bruteforce(Q, D, 8, "cuda")
     np.testing.assert_array_equal(res.indices, bf_i)
     np.testing.assert_array_equal(res.distances, bf_d)

@@ -104,6 +104,80 @@ def test_ssax_dist_plain_matches_reference(jref, N, L, W, As, Ar):
     _close(got, jref.ssax(*jargs, interpret=True), TOL["ssax"])
 
 
+def _ssax_batch_inputs(Q, N, L, W, As, Ar):
+    return (RNG.integers(0, As, size=(N, L)).astype(np.int32),
+            RNG.integers(0, Ar, size=(N, W)).astype(np.int32),
+            *(RNG.normal(size=s).astype(np.float32)
+              for s in ((Q, L, As), (Q, L, As), (Q, W, Ar), (Q, W, Ar))))
+
+
+# (Q, N, L, W, A_seas, A_res): ragged N (not a multiple of 128) and
+# ragged W (not a multiple of the kernel's 16-term chunk)
+SSAX_BATCH_SHAPES = [(1, 100, 10, 17, 16, 32), (3, 256, 8, 24, 16, 8),
+                     (8, 100, 10, 48, 16, 32)]
+
+
+@pytest.mark.parametrize("Q,N,L,W,As,Ar", SSAX_BATCH_SHAPES)
+def test_ssax_dist_batch_plain_matches_reference(jref, Q, N, L, W, As, Ar):
+    """Each row of the batched sweep against the reference's Pallas
+    kernel (interpret mode) and oracle on that query's tables."""
+    seas, res, t1, t2, u1, u2 = _ssax_batch_inputs(Q, N, L, W, As, Ar)
+    got = ops.ssax_dist_batch(*map(torch.from_numpy,
+                                   (seas, res, t1, t2, u1, u2)))
+    assert got.shape == (Q, N) and got.dtype == torch.float32
+    js, jr = jref.jnp.asarray(seas), jref.jnp.asarray(res)
+    for q in range(Q):
+        tabs = [jref.jnp.asarray(a[q]) for a in (t1, t2, u1, u2)]
+        _close(got[q], jref.ssax(js, jr, *tabs, interpret=True),
+               TOL["ssax"])
+        _close(got[q], jref.ref.ssax_dist_ref(js, jr, *tabs), TOL["ssax"])
+
+
+@pytest.mark.parametrize("Q,N,L,W,As,Ar", SSAX_BATCH_SHAPES)
+def test_ssax_dist_batch_plain_equals_single_query(Q, N, L, W, As, Ar):
+    args = [torch.from_numpy(a) for a in _ssax_batch_inputs(Q, N, L, W, As,
+                                                            Ar)]
+    got = ops.ssax_dist_batch(*args)
+    for q in range(Q):
+        assert torch.equal(got[q], ops.ssax_dist(
+            *args[:2], *(t[q] for t in args[2:])))
+
+
+@pytest.mark.parametrize("Q,L,W,As,Ar", [(1, 10, 48, 16, 32),
+                                         (8, 10, 24, 16, 32),
+                                         (5, 3, 17, 4, 1024)])
+def test_make_ssax_query_tables_batch_equals_stacked(Q, L, W, As, Ar):
+    """The (Q, L)/(Q, W) form gives each query's tables bitwise,
+    the clamped infinities of the outer breakpoints included."""
+    from repro_torch.core.breakpoints import gaussian_breakpoints
+    bs, br = gaussian_breakpoints(As, 0.8), gaussian_breakpoints(Ar, 0.6)
+    qs = torch.from_numpy(RNG.integers(0, As, size=(Q, L)).astype(np.int32))
+    qr = torch.from_numpy(RNG.integers(0, Ar, size=(Q, W)).astype(np.int32))
+    qs[0, 0], qr[0, 0] = 0, Ar - 1              # an infinite bound each
+    batch = ops.make_ssax_query_tables(qs, qr, bs, br)
+    for got, shape in zip(batch, ((Q, L, As), (Q, L, As), (Q, W, Ar),
+                                  (Q, W, Ar))):
+        assert got.shape == shape and got.is_contiguous()
+        assert torch.isfinite(got).all()
+    for q in range(Q):
+        for got, want in zip(batch, ops.make_ssax_query_tables(
+                qs[q], qr[q], bs, br)):
+            assert torch.equal(got[q], want)
+
+
+def test_ssax_dist_batch_rejects_bad_shapes():
+    seas, res = (torch.zeros(4, 3, dtype=torch.int32),
+                 torch.zeros(4, 5, dtype=torch.int32))
+    t, u = torch.zeros(2, 3, 4), torch.zeros(2, 5, 4)
+    assert ops.ssax_dist_batch(seas, res, t, t, u, u).shape == (2, 4)
+    for bad in ((t, t, u[:1], u[:1]),                 # Q disagrees
+                (t[:, :2], t[:, :2], u, u),           # L disagrees
+                (t, t, u[:, :4], u[:, :4]),           # W disagrees
+                (t[0], t[0], u[0], u[0])):            # not batched
+        with pytest.raises(ValueError):
+            ops.ssax_dist_batch(seas, res, *bad)
+
+
 @pytest.mark.parametrize("N,T,W", [(128, 512, 32), (256, 960, 48),
                                    (128, 480, 24)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -295,6 +369,72 @@ def test_ssax_dist_kernel_takes_clamped_infinite_tables(cuda):
            TOL["ssax"])
 
 
+# (Q, N, L, W, A_seas, A_res): the main path's and the subsequence path's
+# shapes at Q = 8, the one-query shape, ragged N and W, one query's
+# tables beyond shared memory (read through L2), rows of 452 words,
+# the longest the kernel takes (odd strides 51 + 401 <= 453)
+@pytest.mark.parametrize("Q,N,L,W,As,Ar", [
+    (8, 1 << 16, 10, 48, 16, 32), (8, 50_000, 10, 24, 16, 32),
+    (1, 1 << 16, 10, 48, 16, 32), (3, 300, 8, 17, 16, 8),
+    (2, 1000, 10, 96, 64, 1024), (3, 257, 50, 401, 4, 4)])
+def test_ssax_dist_batch_kernel_matches_plain(cuda, Q, N, L, W, As, Ar):
+    args = [torch.from_numpy(a).to(cuda)
+            for a in _ssax_batch_inputs(Q, N, L, W, As, Ar)]
+    n0 = KERNELS["ssax_dist"].launches
+    got = ops.ssax_dist_batch(*args)
+    torch.cuda.synchronize()
+    assert KERNELS["ssax_dist"].launches == n0 + 1
+    _close(got.cpu(), ref.ssax_dist_batch_ref(*args).cpu(), TOL["ssax"])
+
+
+@pytest.mark.parametrize("Q", [8, 64])
+@pytest.mark.parametrize("N,W", [(5000, 48), (777, 24)])
+def test_ssax_dist_batch_kernel_rows_equal_single_launches(cuda, Q, N, W):
+    """Every row of a batched launch equals that query's Q = 1 launch
+    bitwise; Q = 64 at these alphabets is 870 KB of tables at W = 48,
+    beyond shared memory, so it goes in groups, and is held to the plain
+    version too."""
+    L, As, Ar = 10, 16, 32
+    args = [torch.from_numpy(a).to(cuda)
+            for a in _ssax_batch_inputs(Q, N, L, W, As, Ar)]
+    got = ops.ssax_dist_batch(*args)
+    for q in range(Q):
+        assert torch.equal(got[q], ops.ssax_dist(
+            *args[:2], *(t[q].contiguous() for t in args[2:]))), q
+    _close(got.cpu(), ref.ssax_dist_batch_ref(*args).cpu(), TOL["ssax"])
+
+
+def test_ssax_dist_batch_kernel_takes_clamped_infinite_tables(cuda):
+    """The batched tables carry -3.4e38/4 where the breakpoints are
+    infinite; every query's sum must be the plain version's."""
+    from repro_torch.core.breakpoints import gaussian_breakpoints
+    Q, L, W, As, Ar, N = 8, 10, 48, 16, 32, 4096
+    bs, br = gaussian_breakpoints(As, 0.8), gaussian_breakpoints(Ar, 0.6)
+    seas = torch.from_numpy(RNG.integers(0, As, size=(N, L)).astype(np.int32))
+    res = torch.from_numpy(RNG.integers(0, Ar, size=(N, W)).astype(np.int32))
+    tabs = ops.make_ssax_query_tables(seas[:Q], res[:Q], bs, br)
+    args = [a.to(cuda) for a in (seas, res, *tabs)]
+    _close(ops.ssax_dist_batch(*args).cpu(),
+           ref.ssax_dist_batch_ref(*args).cpu(), TOL["ssax"])
+
+
+def test_ssax_dist_batch_kernel_clamps_malformed_symbols(cuda):
+    """A symbol outside its alphabet reads the nearest table column, as
+    if it had been clamped into the alphabet first."""
+    Q, N, L, W, As, Ar = 3, 1000, 10, 48, 16, 32
+    seas, res, *tabs = [torch.from_numpy(a).to(cuda) for a in
+                        _ssax_batch_inputs(Q, N, L, W, As, Ar)]
+    bad_s, bad_r = seas.clone(), res.clone()
+    bad_s[::7, 3] = -5
+    bad_s[1::7, 0] = As + 9
+    bad_r[::5, 17] = Ar
+    bad_r[2::5, 40] = -1
+    got = ops.ssax_dist_batch(bad_s, bad_r, *tabs)
+    want = ops.ssax_dist_batch(bad_s.clamp(0, As - 1),
+                               bad_r.clamp(0, Ar - 1), *tabs)
+    assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("N,T,W", [(4096, 960, 48), (300, 480, 24),
                                    (129, 1920, 96), (3, 20, 20)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -471,3 +611,14 @@ def test_kernels_reject_wrong_dtypes_on_card(cuda):
         ops.windowed_euclid(torch.zeros(4, 8, device=cuda,
                                         dtype=torch.float64),
                             torch.zeros(4, device=cuda, dtype=torch.float64))
+    with pytest.raises(TypeError):
+        ops.ssax_dist_batch(*(torch.zeros(4, 3, device=cuda,
+                                          dtype=torch.int64),) * 2,
+                            *(torch.zeros(2, 3, 4, device=cuda),) * 4)
+    with pytest.raises(ValueError):       # L + W beyond the staged rows
+        ops.ssax_dist_batch(torch.zeros(4, 10, device=cuda,
+                                        dtype=torch.int32),
+                            torch.zeros(4, 444, device=cuda,
+                                        dtype=torch.int32),
+                            *(torch.zeros(2, 10, 4, device=cuda),) * 2,
+                            *(torch.zeros(2, 444, 4, device=cuda),) * 2)
