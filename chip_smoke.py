@@ -29,7 +29,23 @@ Phases, each failing loudly with a nonzero exit:
    rows, ``verify="auto"``.  Every exact answer must equal a K1 brute
    force bitwise, and its ids a plain-version brute force away from
    near-ties.
-4. Drive the subsequence path through the launcher's building blocks
+4. Drive the index path through the launcher's ``make_engine``,
+   ``SymbolicStore.build_index`` and ``MatchEngine.topk(source="index",
+   explain=)`` on phase 3's corpus: the sSAX split-tree index over all
+   1,000,000 rows (leaf_fill 64; build seconds and nodes printed),
+   indexed k = 1 and 32 bitwise equal to phase 3's K1 brute force and
+   to the linear answers (phase 3's and this store's), and traced
+   (``explain=True``) indexed and linear calls bitwise equal to their
+   untraced calls with the same launches, their traces clean under
+   ``check_trace`` and rendered; SAX, tSAX and stSAX indexed over the
+   first 65,536 rows, each bitwise equal to its linear answer; then a
+   snapshot round trip of a 65,536-row sSAX store with its index (save,
+   ``SymbolicStore.open(device="cuda")``, answers bitwise, 2 rows
+   appended after reopening are indexed and found).  Every call's K1
+   launches equal its rounds and its store fetches: the seed
+   verification is one round (one fetch, one gathered K1 launch) and
+   each scan round another.
+5. Drive the subsequence path through the launcher's building blocks
    (``make_subseq_engine``, ``SubseqEngine.topk`` and ``scan_topk``):
    every z-normalized window (m = 240, stride 4) of a 2,048 x 3,600
    season corpus, 1,722,368 windows, sSAX (k = 1, 8, and 8 with
@@ -39,14 +55,14 @@ Phases, each failing loudly with a nonzero exit:
    the K5 scan must agree away from near-ties, a row appended later
    must be found, and a chunked window encode must equal a one-shot one
    on the card bitwise.
-   Phases 3 and 4 print the split of one warm topk call (sweep, host
+   Phases 3 and 5 print the split of one warm topk call (sweep, host
    argsort, verification loop) and fail unless every call's K1 launches
    equal its verification rounds (one gathered launch per round; on
    whole series every round is also one store fetch) and every sSAX
-   call made one K2 launch (one batched sweep for all its queries).
-5. Print each path's launch counts (each kernel of a path > 0) and the
-   ``{"kernels": [...]}`` line with the launches of both paths.
-6. Print the card's name and power limit, then the result line.
+   sweep made one K2 launch (one batched sweep for all its queries).
+6. Print each path's launch counts (each kernel of a path > 0) and the
+   ``{"kernels": [...]}`` line with the launches of all three paths.
+7. Print the card's name and power limit, then the result line.
 
 It imports neither JAX nor the JAX package, needs the repository beside
 it, and exits nonzero without printing a result when there is no card.
@@ -73,6 +89,7 @@ SUB_M, SUB_STRIDE, SUB_EXCL = 240, 4, 120      # window, hop, exclusion
 SUB_CHUNK_ROWS = 38           # rows of one scan_topk launch (2.5e8 B chunk)
 SUB_CALLS = {"ssax": ((1, 0), (8, 0), (8, SUB_EXCL)), "sax": ((8, 0),),
              "tsax": ((8, 0),), "stsax": ((8, 0),)}   # (k, exclusion)
+LEAF_FILL = 64                # split-tree leaf fill factor of the index path
 TOL = {"euclid": 1e-4, "euclid_bf16": 5e-2, "ssax_dist": 1e-4,
        "sax_dist": 1e-5, "paa": 1e-5, "paa_bf16": 2e-2,
        "windowed_euclid": 1e-3}
@@ -607,7 +624,9 @@ def split_only(torch, np, dev):
 
 def main_path(torch, np, dev):
     """Phase 3: the port's main path, then its checks.  Returns the
-    kernels' launch counts during the path alone."""
+    kernels' launch counts during the path alone and what the index
+    path reuses: the queries, the corpus, the sSAX representation on
+    the host, the K1 brute force per technique and the answers."""
     from repro_torch.data.synthetic import season_corpus
     from repro_torch.kernels import launch_counts, ref, reset_launch_counts
     from repro_torch.launch.match import kernel_bruteforce, make_engine
@@ -648,11 +667,14 @@ def main_path(torch, np, dev):
                               if tech == "ssax"])
 
     split(torch, np, dev, engines, Q)
+    rep_ssax = tuple(t.cpu().numpy() for t in engines["ssax"].rep)
     engines.clear()
+    brute = {}
 
     for tech, data in plan:
         n = data.shape[0]
-        bf_i, bf_d = kernel_bruteforce(Q, data, max(KS) + 1, dev)
+        bf_i, bf_d = brute[tech] = kernel_bruteforce(Q, data, max(KS) + 1,
+                                                     dev)
         pl_d = plain_bruteforce(torch, np, ref, Q, data, dev)
         pl_o = np.argsort(pl_d, axis=1, kind="stable")
         for k in KS:
@@ -683,11 +705,181 @@ def main_path(torch, np, dev):
                 f"{res.rounds} rounds, {res.store_fetches} fetches; topk "
                 f"wall {wall:.3f} s; "
                 f"launches {calls}")
+    return counts, dict(Q=Q, D=D, rep_ssax=rep_ssax, brute=brute,
+                        results=results)
+
+
+def same_answer(np, a, b) -> bool:
+    """Two ``TopKResult``s agree bitwise: ids and distances."""
+    return (np.array_equal(a.indices, b.indices)
+            and np.array_equal(a.distances, b.distances))
+
+
+def index_path(torch, np, dev, main):
+    """Phase 4: the index path on phase 3's corpus, then its checks.
+    Returns the kernels' launch counts during the path alone."""
+    import tempfile
+    from repro_torch.core.engine import MatchEngine
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.ops import make_pairwise
+    from repro_torch.launch.match import make_engine
+    from repro_torch.obs import check_trace, render_trace
+    from repro_torch.store import SymbolicStore
+    Q, D, brute, linear = main["Q"], main["D"], main["brute"], \
+        main["results"]
+    reset_launch_counts()
+
+    def build(tech, data, rep=None):
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        engine = make_engine(tech, data, L=L, strength=STRENGTH,
+                             batch=BATCH, verify="auto", rep=rep, device=dev)
+        t_store = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        engine.store.build_index(leaf_fill=LEAF_FILL)
+        sync(torch, dev)
+        return engine, t_store, time.perf_counter() - t0
+
+    def call(engine, queries=Q, **kw):
+        engine.store.reset()
+        before = launch_counts()
+        t0 = time.perf_counter()
+        res = engine.topk(queries, **kw)
+        wall = time.perf_counter() - t0
+        return res, wall, {n: c - before[n] for n, c in
+                           launch_counts().items()}
+
+    engine, t_store, t_build = build("ssax", D, rep=main["rep_ssax"])
+    idx = engine.store.index
+    say(f"ssax index over {idx.n} rows: {idx.n_nodes} nodes (leaf_fill "
+        f"{LEAF_FILL}) built in {t_build:.2f} s (features through K4 in "
+        f"chunks of 8,192 rows, the tree on the host); store from phase "
+        f"3's representation in {t_store:.2f} s")
+    runs = {}
+    for k in KS:
+        runs["index", k] = call(engine, k=k, source="index")
+        runs["linear", k] = call(engine, k=k)
+    for src, source in (("index", "index"), ("linear", None)):
+        runs[src + " traced", max(KS)] = call(engine, k=max(KS),
+                                              source=source, explain=True)
+    all_calls = list(runs.values())
+
+    for (name, k), (res, wall, calls) in runs.items():
+        bf_i, bf_d = brute["ssax"]
+        if not (np.array_equal(res.indices, bf_i[:, :k]) and np.array_equal(
+                res.distances, bf_d[:, :k].astype(np.float64))):
+            fail(f"ssax {name} k={k}: differs from the K1 brute force")
+        if not same_answer(np, res, linear["ssax", k][0]):
+            fail(f"ssax {name} k={k}: differs from phase 3's linear answer")
+    for src in ("index", "linear"):
+        base, traced = runs[src, max(KS)], runs[src + " traced", max(KS)]
+        (b, _, bc), (t, _, tc) = base, traced
+        if not (same_answer(np, b, t) and bc == tc
+                and np.array_equal(b.raw_accesses, t.raw_accesses)
+                and (b.rounds, b.store_fetches, b.store_accesses)
+                == (t.rounds, t.store_fetches, t.store_accesses)):
+            fail(f"ssax {src} k={max(KS)}: the traced call differs from "
+                 f"the untraced one ({tc} vs {bc} launches)")
+        problems = check_trace(t.trace)
+        if problems:
+            fail(f"ssax {src} trace: {problems}")
+        for line in render_trace(t.trace).splitlines():
+            say(f"explain {src}: {line}")
+    for k in KS:
+        (ri, wi, ci), (rl, wl, cl) = runs["index", k], runs["linear", k]
+        say(f"ssax N={idx.n} k={k}: indexed == linear == K1 brute force "
+            f"bitwise; rows verified per query {ri.raw_accesses.mean():.1f}"
+            f" indexed vs {rl.raw_accesses.mean():.1f} linear; rounds "
+            f"{ri.rounds} vs {rl.rounds}; K1 launches {ci['euclid']} vs "
+            f"{cl['euclid']}; topk wall {wi:.3f} s vs {wl:.3f} s; "
+            f"launches {ci} vs {cl}")
+    for src in ("index", "linear"):
+        res, wall, calls = runs[src + " traced", max(KS)]
+        tr = res.trace
+        say(f"ssax {src} k={max(KS)} traced: topk wall {wall:.3f} s = "
+            f"order {tr.span_seconds('order'):.3f} s (of which seed "
+            f"{tr.span_seconds('seed'):.3f} s) + verify "
+            f"{tr.span_seconds('verify'):.3f} s; equal to its untraced "
+            f"call bitwise with the same launches {calls}; check_trace "
+            f"clean")
+    del engine
+
+    # the other encoders, indexed over the first N_SMALL rows
+    for tech in ("sax", "tsax", "stsax"):
+        engine, _, t_build = build(tech, D[:N_SMALL])
+        res = call(engine, k=max(KS), source="index")
+        lin = call(engine, k=max(KS))
+        all_calls += [res, lin]
+        if not same_answer(np, res[0], lin[0]):
+            fail(f"{tech} N={N_SMALL}: indexed differs from linear")
+        if tech != "sax" and not same_answer(np, lin[0],
+                                             linear[tech, max(KS)][0]):
+            fail(f"{tech} N={N_SMALL}: linear differs from phase 3's")
+        say(f"{tech} N={N_SMALL} k={max(KS)}: index of "
+            f"{engine.store.index.n_nodes} nodes built in {t_build:.2f} s; "
+            f"indexed == linear bitwise; rows verified per query "
+            f"{res[0].raw_accesses.mean():.1f} vs "
+            f"{lin[0].raw_accesses.mean():.1f}; rounds {res[0].rounds} vs "
+            f"{lin[0].rounds}; topk wall {res[1]:.3f} s vs {lin[1]:.3f} s")
+        del engine
+
+    # a snapshot of an indexed sSAX store, reopened on the card
+    engine, _, _ = build("ssax", D[:N_SMALL])
+    store = engine.store
+    want = [call(engine, k=max(KS), source=src)
+            for src in ("index", None)]
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        path = store.save(tmp)
+        t_save = time.perf_counter() - t0
+        n_bytes = sum(f.stat().st_size for f in Path(path).iterdir())
+        t0 = time.perf_counter()
+        back = SymbolicStore.open(tmp, device=dev)
+        t_open = time.perf_counter() - t0
+    if back.device != store.device or not np.array_equal(back.data,
+                                                          store.data):
+        fail("snapshot: reopened raw rows differ")
+    for a, b in zip(back.rep_view(), store.rep_view()):
+        if not np.array_equal(a, b):
+            fail("snapshot: reopened representation differs")
+    (ma, xa), (mb, xb) = back.index.to_snapshot(), store.index.to_snapshot()
+    if ma != mb or any(not np.array_equal(xa[k], xb[k]) for k in xb):
+        fail("snapshot: reopened index differs")
+    reopened = MatchEngine(back.encoder, back, batch_size=BATCH,
+                           verify=engine.verify_mode,
+                           pairwise=make_pairwise(back.encoder), device=dev)
+    got = [call(reopened, k=max(KS), source=src) for src in ("index", None)]
+    all_calls += want + got
+    for (w, _, _), (g, _, _) in zip(want, got):
+        if not (same_answer(np, w, g)
+                and np.array_equal(w.raw_accesses, g.raw_accesses)):
+            fail("snapshot: the reopened store answers differently")
+    new_rows = D[N_SMALL:N_SMALL + 2]
+    ids = reopened.append(new_rows)
+    found = call(reopened, new_rows, k=1, source="index")
+    all_calls.append(found)
+    found = found[0]
+    if back.index.n != back.n or list(found.indices[:, 0]) != list(ids):
+        fail(f"snapshot: appended rows {list(ids)} were not indexed and "
+             f"found ({list(found.indices[:, 0])})")
+    say(f"snapshot of {store.n} ssax rows + index ({store.index.n_nodes} "
+        f"nodes): {n_bytes} bytes saved in {t_save:.2f} s, opened on "
+        f"{back.device} in {t_open:.2f} s; indexed and linear k={max(KS)} "
+        f"answers bitwise equal after reopening; 2 rows appended after "
+        f"reopening indexed ({back.index.n} of {back.n}) and found as "
+        f"their own nearest neighbours")
+    del engine, reopened, back, store
+
+    counts = launch_counts()
+    say(f"index path launches: {counts}")
+    rounds_check("index path", all_calls, exact_fetch=True)
+    sweep_check("index path", [c for (src, _), (_, _, c) in runs.items()
+                               if src.startswith("linear")])
     return counts
 
 
 def subseq_path(torch, np, dev):
-    """Phase 4: the subsequence path, then its checks.  Returns the
+    """Phase 5: the subsequence path, then its checks.  Returns the
     kernels' launch counts during the path alone."""
     from repro_torch.data.synthetic import season_dataset
     from repro_torch.kernels import launch_counts, reset_launch_counts
@@ -939,20 +1131,25 @@ def main():
         f"({time.perf_counter() - t0:.1f} s)")
 
     t0 = time.perf_counter()
-    counts = main_path(torch, np, dev)
+    counts, main = main_path(torch, np, dev)
     say(f"phase 3: main path exact ({time.perf_counter() - t0:.1f} s)")
 
     t0 = time.perf_counter()
+    idx_counts = index_path(torch, np, dev, main)
+    del main
+    say(f"phase 4: index path exact ({time.perf_counter() - t0:.1f} s)")
+
+    t0 = time.perf_counter()
     sub_counts = subseq_path(torch, np, dev)
-    say(f"phase 4: subsequence path exact ({time.perf_counter() - t0:.1f} "
+    say(f"phase 5: subsequence path exact ({time.perf_counter() - t0:.1f} "
         f"s)")
 
-    missing = [n for n in MAIN_KERNELS if counts[n] <= 0]
-    if missing:
-        fail(f"kernels never launched on the main path: {missing}")
-    missing = [n for n, c in sub_counts.items() if c <= 0]
-    if missing:
-        fail(f"kernels never launched on the subsequence path: {missing}")
+    for path, c, names in (("main", counts, MAIN_KERNELS),
+                           ("index", idx_counts, MAIN_KERNELS),
+                           ("subsequence", sub_counts, tuple(sub_counts))):
+        missing = [n for n in names if c[n] <= 0]
+        if missing:
+            fail(f"kernels never launched on the {path} path: {missing}")
     kernels = []
     for name in (*MAIN_KERNELS, "windowed_euclid"):
         r = rows[name]
@@ -960,11 +1157,11 @@ def main():
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
             "replaces": REPLACES[name],
-            "launches": counts[name] + sub_counts[name],
+            "launches": counts[name] + idx_counts[name] + sub_counts[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": r["library_ms"]})
-    say(f"phase 5: every kernel launched on its paths; total "
+    say(f"phase 6: every kernel launched on its paths; total "
         f"{time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
 

@@ -1,7 +1,8 @@
 """The paper's contribution: season- and trend-aware symbolic approximation
 (sSAX / tSAX) with lower-bounding distances, plus the SAX baseline and
-the pruned exact / approximate matching engine.  No index is imported
-here until one is ported."""
+the pruned exact / approximate matching engine.  The split-tree index
+lives in ``repro_torch.index`` (``core.index`` is its compatibility
+shim)."""
 
 from repro_torch.core.normalize import znormalize  # noqa: F401
 from repro_torch.core.breakpoints import (  # noqa: F401
@@ -13,6 +14,7 @@ from repro_torch.core.ssax import (  # noqa: F401
 from repro_torch.core.tsax import (  # noqa: F401
     TSAX, trend_features, trend_strength)
 from repro_torch.core.stsax import STSAX  # noqa: F401
+from repro_torch.core.onedsax import OneDSAX  # noqa: F401
 from repro_torch.core.techniques import (  # noqa: F401
     TECHNIQUES, from_reference, make_technique, rep_from_numpy)
 from repro_torch.core.matching import (  # noqa: F401

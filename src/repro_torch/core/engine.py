@@ -53,6 +53,7 @@ bit-identical to a numpy brute-force scan.
 from __future__ import annotations
 
 import functools
+import time
 from dataclasses import dataclass
 from typing import Callable, Optional
 
@@ -181,7 +182,7 @@ def topk_verify(queries_raw, repr_dists, store: RawStore, *, k: int = 1,
                 init_d=None, init_i=None, col_ids=None,
                 dist_fn: Optional[Callable] = None,
                 on_verified: Optional[Callable] = None,
-                stream=None) -> TopKResult:
+                stream=None, trace=None) -> TopKResult:
     """Exact top-k under d_ED for a query batch given lower-bounding
     representation distances (Q, N).  See the module docstring for the
     correctness argument.
@@ -203,7 +204,12 @@ def topk_verify(queries_raw, repr_dists, store: RawStore, *, k: int = 1,
 
     ``stream``: optional device-ordered candidate stream (``peek() ->
     (Q,) next unverified bound``, ``take(aq, batch) -> (len(aq), batch)
-    global ids, -1-padded``, ``width``) replacing ``repr_dists``."""
+    global ids, -1-padded``, ``width``) replacing ``repr_dists``.
+
+    ``trace``: optional ``repro_torch.obs.Trace``.  Every recording site
+    is guarded by ``trace is None`` and records host copies after the
+    round's computation, so a traced call launches the same kernels on
+    the same inputs as an untraced one and returns the same result."""
     qs = np.asarray(queries_raw)        # native dtype: the host verifier
     if qs.ndim == 1:                    # stays bit-identical to brute force
         qs = qs[None]
@@ -252,6 +258,22 @@ def topk_verify(queries_raw, repr_dists, store: RawStore, *, k: int = 1,
     acc = np.zeros(q_n, np.int64)
     n_round = 0
     start_acc, start_fetch = store.accesses, store.fetches
+    if trace is not None:                # candidates handed to this scan
+        if stream is None:
+            gen = n_fin.astype(np.int64)
+            # the ids behind the accumulated count, so the engine can
+            # report a deduplicated per-query "generated_unique"
+            for qi in range(q_n):
+                fin = np.nonzero(np.isfinite(rd[qi]))[0]
+                trace.note_ids("generated", qi,
+                               col_ids[fin] if col_ids is not None else fin)
+        else:
+            nf = getattr(stream, "n_finite", None)
+            gen = (np.asarray(nf, np.int64) if nf is not None
+                   else np.full(q_n, n, np.int64))
+            # a stream never re-hands an id: its count is already unique
+            trace.note_counts("generated", gen)
+        trace.add("generated", gen)
 
     while True:
         # >= (not >): a candidate whose bound ties the k-th best verified
@@ -266,6 +288,7 @@ def topk_verify(queries_raw, repr_dists, store: RawStore, *, k: int = 1,
         if not active.any():
             break
         aq = np.nonzero(active)[0]
+        t_round = time.perf_counter() if trace is not None else 0.0
         if stream is None:
             cand = np.full((len(aq), batch_size), -1, np.int64)
             for r, qi in enumerate(aq):
@@ -298,15 +321,26 @@ def topk_verify(queries_raw, repr_dists, store: RawStore, *, k: int = 1,
         acc[aq] += n_real
         if stream is None:               # a stream advances its own cursor
             pos[aq] += n_real
+        if trace is not None:            # round telemetry: the k-th-best
+            trace.record_round(          # threshold after this merge
+                phase="scan", active=int(len(aq)),
+                examined=int(n_real.sum()), kth=front_d[aq, -1].copy(),
+                wall_s=time.perf_counter() - t_round)
 
     total = store.accesses - start_acc
     n_fetch = store.fetches - start_fetch
+    io_s = store.modeled_io_seconds(total, n_fetch)
+    if trace is not None:
+        trace.add("examined", acc)
+        trace.add("verified", acc)
+        trace.add("rows_fetched", int(total))
+        trace.add("seeks", int(n_fetch))
+        trace.add("modeled_io_s", float(io_s))
     return TopKResult(indices=front_i, distances=front_d,
                       raw_accesses=acc,
                       pruned_fraction=1.0 - acc / n,
                       store_accesses=total, store_fetches=n_fetch,
-                      io_seconds=store.modeled_io_seconds(total, n_fetch),
-                      rounds=n_round)
+                      io_seconds=io_s, rounds=n_round)
 
 
 def verify_candidates(queries_raw, cand_idx, store: RawStore, *,
@@ -314,11 +348,15 @@ def verify_candidates(queries_raw, cand_idx, store: RawStore, *,
                       verifier: Callable = numpy_verifier,
                       merge: Callable = merge_topk_numpy,
                       dist_fn: Optional[Callable] = None,
-                      on_verified: Optional[Callable] = None) -> TopKResult:
+                      on_verified: Optional[Callable] = None,
+                      trace=None, trace_phase: str = "seed") -> TopKResult:
     """Approximate top-k: verify an externally supplied candidate set and
     rank by true d_ED.  cand_idx: (Q, C) dataset rows; -1 entries are
     padding.  ``dist_fn`` / ``on_verified``: same contracts as
-    :func:`topk_verify`."""
+    :func:`topk_verify`.  ``trace`` records this call as one
+    verification round labelled ``trace_phase`` ("seed" for the tree
+    seed walk, "approx" for the approximate path)."""
+    t0 = time.perf_counter() if trace is not None else 0.0
     qs = np.asarray(queries_raw)
     if qs.ndim == 1:
         qs = qs[None]
@@ -355,11 +393,24 @@ def verify_candidates(queries_raw, cand_idx, store: RawStore, *,
     total = store.accesses - start_acc
     n_fetch = store.fetches - start_fetch
     acc = mask.sum(axis=1)
+    io_s = store.modeled_io_seconds(total, n_fetch)
+    if trace is not None:
+        trace.add("generated", acc.astype(np.int64))
+        for r in range(q_n):
+            trace.note_ids("generated", r, cand[r][mask[r]])
+        trace.add("examined", acc.astype(np.int64))
+        trace.add("verified", acc.astype(np.int64))
+        trace.add("rows_fetched", int(total))
+        trace.add("seeks", int(n_fetch))
+        trace.add("modeled_io_s", float(io_s))
+        trace.record_round(phase=trace_phase, active=q_n,
+                           examined=int(acc.sum()),
+                           kth=out_d[:, -1].copy(),
+                           wall_s=time.perf_counter() - t0)
     return TopKResult(indices=out_i, distances=out_d, raw_accesses=acc,
                       pruned_fraction=1.0 - acc / n,
                       store_accesses=total, store_fetches=n_fetch,
-                      io_seconds=store.modeled_io_seconds(total, n_fetch),
-                      rounds=1)
+                      io_seconds=io_s, rounds=1)
 
 
 # ---------------------------------------------------------------------------
@@ -426,6 +477,15 @@ class MatchEngine:
     device:     where encode, sweep and kernel verification run.  The
                 default is the CUDA card, and construction raises when
                 there is none; pass ``device="cpu"`` to run on the CPU.
+    metrics:    optional ``repro_torch.obs.MetricsRegistry``: per-call
+                counters and a latency histogram, recorded after the
+                result exists; None (the default) records nothing.
+
+    Candidate sources: exact ``topk`` consumes candidates from a
+    ``repro_torch.index.candidates.CandidateSource``.  The default is the
+    linear lower-bound sweep; ``source="index"`` generates them from the
+    backing store's split-tree index (``store.build_index()``) with
+    bit-identical results.
     """
 
     def __init__(self, encoder, store, *, batch_size: int = 64,
@@ -435,12 +495,13 @@ class MatchEngine:
                  device_merge: bool = False,
                  dist_factory: Callable | None = None,
                  stream_factory: Callable | None = None,
-                 device="cuda"):
+                 metrics=None, device="cuda"):
         self.device = resolve_device(device)
         self.encoder = encoder
         self.store = store
         self.batch_size = batch_size
         self.verify_mode = verify
+        self.metrics = metrics
         self.device_verify = verify == "device"
         if self.device_verify and dist_factory is None:
             raise ValueError(
@@ -481,6 +542,15 @@ class MatchEngine:
         if self._rep_cache is None:
             return None
         return self._rep_cache.get()
+
+    def append(self, rows) -> np.ndarray:
+        """Ingest rows into the backing ``SymbolicStore`` (incremental
+        encode; an attached index is maintained); they are matchable on
+        the next ``topk`` call."""
+        if self._sym is None:
+            raise TypeError("append() needs a SymbolicStore-backed engine; "
+                            "this one wraps a static RawStore")
+        return self._sym.append(rows)
 
     # -- representation sweep -------------------------------------------
     def encode_queries(self, queries_raw):
@@ -535,21 +605,41 @@ class MatchEngine:
         with ``n_rows``, or a plain row count): only rows with id below
         it are generated, verified or returned.
 
-        trace / explain: accepted only as None / False until tracing is
-        ported.
+        trace / explain: ``trace`` records a per-query
+        ``repro_torch.obs.Trace`` into the given object; ``explain=True``
+        creates one and attaches it to the result as ``res.trace``
+        (render with ``repro_torch.obs.render_trace``).  A traced call
+        launches the same kernels on the same inputs as an untraced one
+        and returns the same result.
         """
+        from repro_torch.obs.trace import maybe_span
         from repro_torch.store.symbolic import epoch_rows
-        if trace is not None or explain:
-            raise NotImplementedError("tracing is not ported yet")
         qs = np.asarray(queries_raw)
         if qs.ndim == 1:
             qs = qs[None]
+        if explain and trace is None:
+            from repro_torch.obs import Trace
+            trace = Trace("match.topk")
         total = getattr(self.store, "n", None)
         if total is None:
             total = self.store.data.shape[0]
         n_e = epoch_rows(epoch)
         if n_e is not None:
             total = min(total, n_e)
+        observing = trace is not None or self.metrics is not None
+        t0 = time.perf_counter() if observing else 0.0
+        if trace is not None:
+            approx_src = bool(getattr(source, "is_approx", False))
+            src_name = ("index" if source == "index" else
+                        "linear" if source is None else
+                        "index-approx" if approx_src else
+                        type(source).__name__)
+            trace.meta.update(engine="match", k=int(k),
+                              exact=bool(exact) and not approx_src,
+                              q_n=int(qs.shape[0]), total=int(total),
+                              source=src_name, verify=self.verify_mode)
+            if n_e is not None:
+                trace.meta["epoch_rows"] = int(n_e)
         dfn = self._make_dist_fn(qs)
         if exact:
             from repro_torch.index.candidates import (
@@ -572,19 +662,87 @@ class MatchEngine:
                         stream_fn=stream_fn)
             elif source == "index":
                 source = self.index_source(epoch=n_e)
-            return topk_from_source(
+            res = topk_from_source(
                 qs, source, self.store, k=k,
                 batch_size=batch_size or self.batch_size,
                 verifier=self.verifier, merge=self.merge, total=total,
-                dist_fn=dfn)
-        cand = self.candidates(qs, k * max(expand, 1))
-        if n_e is not None:
-            # epoch filter on the approximate frontier: rows past the
-            # pinned frontier are dropped (-1 padding), never returned
-            cand = np.where(cand < n_e, cand, -1)
-        return verify_candidates(qs, cand, self.store, k=k,
-                                 verifier=self.verifier, merge=self.merge,
-                                 dist_fn=dfn)
+                dist_fn=dfn, trace=trace)
+        else:
+            with maybe_span(trace, "order"):
+                cand = self.candidates(qs, k * max(expand, 1))
+                if n_e is not None:
+                    # epoch filter on the approximate frontier: rows past
+                    # the pinned frontier are dropped (-1 padding),
+                    # never returned
+                    cand = np.where(cand < n_e, cand, -1)
+            with maybe_span(trace, "verify"):
+                res = verify_candidates(
+                    qs, cand, self.store, k=k, verifier=self.verifier,
+                    merge=self.merge, dist_fn=dfn, trace=trace,
+                    trace_phase="approx")
+        if observing:
+            self._observe(trace, res, total, qs.shape[0],
+                          time.perf_counter() - t0)
+        if trace is not None:
+            res.trace = trace
+        return res
+
+    def topk_approx(self, queries_raw, k: int = 1, *,
+                    collect: Optional[int] = None, trace=None,
+                    explain: bool = False, epoch=None) -> TopKResult:
+        """Anytime/approximate top-k with a per-query error bar.
+
+        When the backing store carries a split-tree index, routes
+        through ``TreeCandidates`` approximate mode: the exact seed walk
+        runs in full, then the collect phase keeps only the ``collect``
+        best-bound survivors (default ``max(4 * k, 32)``).  The result
+        carries ``res.kth_lb`` (the k-th smallest of verified true
+        distances and the dropped candidates' lower bounds — a certified
+        lower bound on the true k-th-NN distance) and ``res.error_bar``
+        (``d_k - kth_lb``, >= 0; zero proves the answer exact).  Without
+        an index it falls back to the representation-top-k approximate
+        path (``exact=False``), which carries no certificate."""
+        idx = getattr(self.store, "index", None)
+        if idx is None:
+            return self.topk(queries_raw, k=k, exact=False, trace=trace,
+                             explain=explain, epoch=epoch)
+        src = idx.source(device_order=self._stream_factory is not None,
+                         approx_collect=(collect if collect is not None
+                                         else max(4 * k, 32)),
+                         epoch=epoch)
+        return self.topk(queries_raw, k=k, source=src, trace=trace,
+                         explain=explain, epoch=epoch)
+
+    def _observe(self, trace, res: TopKResult, total: int, q_n: int,
+                 wall_s: float) -> None:
+        """Post-call recording: pruning power, deduplicated generated
+        counts and registry metrics.  Runs only when a trace or a
+        registry is attached and only after the result exists.  The
+        metric names are the JAX package's."""
+        # the device path never fetches the store; any store accesses
+        # during a device-verified call are rows moved to the host
+        rth = int(res.store_accesses) if self.device_verify else None
+        if trace is not None:
+            trace.set("wall_s", wall_s)
+            trace.set("pruning_power", res.pruned_fraction.copy())
+            gu = trace.unique_counts("generated", q_n)
+            if gu is not None:
+                trace.set("generated_unique", gu)
+            if rth is not None:
+                trace.set("rows_to_host", rth)
+        if self.metrics is not None:
+            m = self.metrics
+            m.counter("match.queries").inc(q_n)
+            m.counter("match.candidates_verified").inc(
+                int(res.raw_accesses.sum()))
+            m.counter("match.rows_fetched").inc(int(res.store_accesses))
+            m.counter("match.seeks").inc(int(res.store_fetches))
+            m.counter("match.modeled_io_s").inc(float(res.io_seconds))
+            m.gauge("match.pruning_power").set(
+                float(res.pruned_fraction.mean()))
+            m.histogram("match.topk_latency_s").observe(wall_s)
+            if rth is not None:
+                m.counter("match.rows_to_host").inc(rth)
 
     def _make_dist_fn(self, qs) -> Optional[Callable]:
         """Device-resident verification closure for this query batch

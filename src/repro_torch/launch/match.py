@@ -14,6 +14,17 @@ instead; without a card the default raises rather than falling back.
 The brute force each exact answer is checked against is K1 over the
 whole corpus, so the engine's exact top-k must equal it bitwise.
 
+The corpus lives in a ``SymbolicStore``.  ``--index`` builds its
+split-tree index and serves indexed exact top-k beside the linear sweep
+(bitwise equal); ``--explain`` prints each call's per-query plan and
+fails if a required span is missing; ``--ingest N --ingest-rows R``
+appends N chunks through ``MatchEngine.append`` while serving (the index
+is maintained, not rebuilt); ``--snapshot-dir`` saves the store, index
+included, at the end:
+
+    PYTHONPATH=src python -m repro_torch.launch.match \
+        --n 20000 --index --explain --ingest 2 --snapshot-dir /tmp/snaps
+
 ``--subseq`` switches to subsequence matching: the corpus rows become
 long series, every z-normalized window of length ``--window`` at
 ``--stride`` is encoded (``subseq.WindowView``), and snippet queries are
@@ -35,20 +46,56 @@ import numpy as np
 import torch
 
 
+def launcher_technique(technique: str, T: int, L: int, strength: float):
+    """The launcher's encoder: ``make_technique`` with W = 48."""
+    from repro_torch.core.techniques import make_technique
+    return make_technique(technique, T=T, W=48, L=L, r2_season=strength)
+
+
 def make_engine(technique: str, D: np.ndarray, *, L: int = 10,
                 strength: float = 0.7, batch: int = 256,
-                store: str = "ssd", verify: str = "auto", device="cuda"):
-    """A ``MatchEngine`` over a ``RawStore`` of ``D`` with the launcher's
-    encoder (W=48) and the kernel sweep for SAX / sSAX."""
+                store: str = "ssd", verify: str = "auto", rep=None,
+                metrics=None, device="cuda"):
+    """A ``MatchEngine`` over a ``SymbolicStore`` holding ``D`` (encoded
+    on ``device`` unless ``rep``, the representation of ``D``, is given)
+    with the launcher's encoder and the kernel sweep for SAX / sSAX.  The
+    engine can ``append``, and its store can build an index and be
+    saved."""
     from repro_torch.core.engine import MatchEngine
-    from repro_torch.core.matching import MEDIA, RawStore
-    from repro_torch.core.techniques import make_technique
     from repro_torch.kernels.ops import make_pairwise
-    tech = make_technique(technique, T=D.shape[1], W=48, L=L,
-                          r2_season=strength)
-    return MatchEngine(tech, RawStore(D, *MEDIA[store]), batch_size=batch,
-                       verify=verify, pairwise=make_pairwise(tech),
+    from repro_torch.store import SymbolicStore
+    tech = launcher_technique(technique, D.shape[1], L, strength)
+    sym = SymbolicStore(tech, media=store, device=device)
+    sym.append(D, rep=rep)
+    return MatchEngine(tech, sym, batch_size=batch, verify=verify,
+                       pairwise=make_pairwise(tech), metrics=metrics,
                        device=device)
+
+
+def _explain(trace):
+    """Print the per-query plan and fail on a broken trace (a missing
+    required span, no verification round)."""
+    from repro_torch.obs import check_trace, render_trace
+    print(render_trace(trace))
+    problems = check_trace(trace)
+    if problems:
+        raise SystemExit("[explain] trace check FAILED: "
+                         + "; ".join(problems))
+
+
+def _print_metrics(registry):
+    """One-screen registry summary (counters + latency quantiles)."""
+    snap = registry.snapshot()
+    if snap["counters"]:
+        kv = ", ".join(f"{k}={v:g}" for k, v in
+                       sorted(snap["counters"].items()))
+        print(f"[metrics] {kv}")
+    for name in sorted(snap["histograms"]):
+        hist = registry.histogram(name)
+        if hist.count:
+            print(f"[metrics] {name}: n={hist.count} "
+                  f"p50<={hist.quantile(0.5):.3g}s "
+                  f"p99<={hist.quantile(0.99):.3g}s")
 
 
 BRUTEFORCE_ROWS = 1 << 18      # rows uploaded per brute-force step
@@ -240,6 +287,24 @@ def main(argv=None):
                     help="window hop in samples")
     ap.add_argument("--exclusion", type=int, default=0,
                     help="non-overlap suppression distance (0: off)")
+    ap.add_argument("--ingest", type=int, default=0,
+                    help="chunks to append while serving")
+    ap.add_argument("--ingest-rows", type=int, default=1024,
+                    help="rows per ingest chunk")
+    ap.add_argument("--snapshot-dir", default="",
+                    help="save the store (raw + rep + index) after the run")
+    ap.add_argument("--index", action=argparse.BooleanOptionalAction,
+                    default=False,
+                    help="build the split-tree index and serve indexed "
+                    "exact queries beside the linear sweep (fewer rows "
+                    "verified; the tree's collect walk runs on the host, "
+                    "so the call is not faster yet)")
+    ap.add_argument("--leaf-fill", type=int, default=64,
+                    help="index leaf fill factor (split threshold)")
+    ap.add_argument("--explain", action="store_true",
+                    help="print a per-query plan (spans, candidates, "
+                    "pruning, I/O, rounds) for every whole-series call "
+                    "and fail if a required span is missing")
     ap.add_argument("--dryrun", action="store_true",
                     help="shrink every dimension to a seconds-scale smoke")
     args = ap.parse_args(argv)
@@ -250,6 +315,7 @@ def main(argv=None):
         args.queries = min(args.queries, 4)
         args.k = min(args.k, 8)
         args.batch = min(args.batch, 64)
+        args.ingest = min(args.ingest, 1)
         if args.subseq:
             args.window = min(args.window, 240)
             args.stride = max(args.stride, 8)
@@ -258,18 +324,27 @@ def main(argv=None):
     from repro_torch.data.synthetic import season_corpus
     device = resolve_device(args.device)
     if args.subseq:
+        if args.index or args.explain or args.ingest or args.snapshot_dir:
+            raise SystemExit("--index, --explain, --ingest and "
+                             "--snapshot-dir serve whole-series matching "
+                             "only; the subsequence path has none of them "
+                             "yet")
         return run_subseq(args, device)
-    X = season_corpus(args.n + args.queries, args.T, args.L, args.strength,
-                      per_series_strength=True, seed=1)
-    Q, D = X[:args.queries], X[args.queries:]
+    from repro_torch.obs import REGISTRY
+    n_ingest = args.ingest * args.ingest_rows
+    X = season_corpus(args.n + args.queries + n_ingest, args.T, args.L,
+                      args.strength, per_series_strength=True, seed=1)
+    Q, D = X[:args.queries], X[args.queries:args.queries + args.n]
+    ingest_pool = X[args.queries + args.n:]
 
     print(f"[match] {args.technique} over {args.n} x {args.T} on {device} "
           f"(verify={args.verify})")
     t0 = time.perf_counter()
-    engine = make_engine(args.technique, D, L=args.L,
-                         strength=args.strength, batch=args.batch,
-                         store=args.store, verify=args.verify,
-                         device=device)
+    engine = make_engine(
+        args.technique, D, L=args.L, strength=args.strength,
+        batch=args.batch, store=args.store, verify=args.verify,
+        metrics=REGISTRY if args.explain else None, device=device)
+    store = engine.store                 # SymbolicStore: raw + live rep
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     print(f"[match] encode: {time.perf_counter() - t0:.2f}s")
@@ -278,10 +353,12 @@ def main(argv=None):
 
     # exact top-k through the pruned batched scan
     for k in (1, args.k):
-        engine.store.reset()
+        store.reset()
         t0 = time.perf_counter()
-        res = engine.topk(Q, k=k)
+        res = engine.topk(Q, k=k, explain=args.explain)
         dt = time.perf_counter() - t0
+        if args.explain:
+            _explain(res.trace)
         hits = sum(int(np.array_equal(res.indices[qi], true_i[qi, :k]))
                    for qi in range(args.queries))
         acc = res.raw_accesses.mean()
@@ -291,16 +368,82 @@ def main(argv=None):
               f"batched fetches; modeled {args.store} I/O "
               f"{res.io_seconds:.3f}s; wall {dt:.2f}s")
 
+    # indexed exact top-k: the split tree generates a compact
+    # candidate set instead of the linear sweep — bit-identical results
+    if args.index:
+        t0 = time.perf_counter()
+        store.build_index(leaf_fill=args.leaf_fill)
+        t_build = time.perf_counter() - t0
+        store.reset()
+        res_lin = engine.topk(Q, k=args.k)
+        lin_acc = res_lin.raw_accesses.mean()
+        store.reset()
+        t0 = time.perf_counter()
+        res_idx = engine.topk(Q, k=args.k, source="index",
+                              explain=args.explain)
+        dt = time.perf_counter() - t0
+        if args.explain:
+            _explain(res_idx.trace)
+        agree = (np.array_equal(res_idx.indices, res_lin.indices)
+                 and np.array_equal(res_idx.distances, res_lin.distances))
+        print(f"[match] index: {store.index.n_nodes} nodes over "
+              f"{store.index.n} rows (leaf_fill {args.leaf_fill}) in "
+              f"{t_build:.2f}s; indexed k={args.k} bitwise==linear "
+              f"{'yes' if agree else 'NO'}; candidates/query "
+              f"{res_idx.raw_accesses.mean():.0f} (indexed) vs "
+              f"{lin_acc:.0f} (linear) of {args.n}; {res_idx.rounds} "
+              f"rounds; wall {dt:.2f}s")
+
     # approximate top-k from the representation frontier
-    engine.store.reset()
+    store.reset()
     t0 = time.perf_counter()
-    res = engine.topk(Q, k=args.k, exact=False)
+    res = engine.topk(Q, k=args.k, exact=False, explain=args.explain)
     dt = time.perf_counter() - t0
+    if args.explain:
+        _explain(res.trace)
     hit1 = sum(int(res.indices[qi, 0] == true_i[qi, 0])
                for qi in range(args.queries))
     print(f"[match] approx k={args.k}: 1-NN hit {hit1}/{args.queries}; "
           f"raw rows/query {res.raw_accesses.mean():.0f}; modeled "
           f"{args.store} I/O {res.io_seconds:.3f}s; wall {dt:.2f}s")
+
+    # ingest while serving: append chunks, answer queries between them —
+    # only the new chunk is encoded (and indexed) each round
+    for c in range(args.ingest):
+        chunk = ingest_pool[c * args.ingest_rows:(c + 1) * args.ingest_rows]
+        t0 = time.perf_counter()
+        engine.append(chunk)
+        t_ing = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res = engine.topk(Q, k=args.k, exact=False)
+        t_q = time.perf_counter() - t0
+        print(f"[match] ingest {c + 1}/{args.ingest}: +{chunk.shape[0]} "
+              f"rows in {t_ing * 1e3:.0f}ms "
+              f"({chunk.shape[0] / max(t_ing, 1e-9):.0f} rows/s), corpus "
+              f"{store.n}; query k={args.k} under ingest {t_q * 1e3:.0f}ms")
+
+    # the index was maintained incrementally through every ingest —
+    # indexed queries stay exact with no rebuild
+    if args.index and args.ingest:
+        if store.index is None or store.index.n != store.n:
+            raise SystemExit("[match] the index lost coverage on ingest")
+        res_idx = engine.topk(Q, k=args.k, source="index")
+        res_lin = engine.topk(Q, k=args.k)
+        agree = (np.array_equal(res_idx.indices, res_lin.indices)
+                 and np.array_equal(res_idx.distances, res_lin.distances))
+        print(f"[match] index after {args.ingest} ingests: covers "
+              f"{store.index.n} rows without rebuild; bitwise==linear "
+              f"{'yes' if agree else 'NO'}")
+
+    if args.snapshot_dir:
+        t0 = time.perf_counter()
+        path = store.save(args.snapshot_dir)
+        print(f"[match] snapshot: {store.n} rows + rep"
+              + (" + index" if store.index is not None else "")
+              + f" -> {path} ({time.perf_counter() - t0:.2f}s)")
+
+    if args.explain:
+        _print_metrics(REGISTRY)
 
 
 if __name__ == "__main__":

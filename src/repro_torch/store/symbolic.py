@@ -19,9 +19,13 @@ consistent under streaming ingestion:
 * ``store_raw=False`` keeps the representation only: the mode
   ``subseq.WindowView`` uses so sliding windows never materialize as
   rows.
-
-Snapshots (``save`` / ``open``) and the split-tree index
-(``build_index``) are not ported yet and raise ``NotImplementedError``.
+* ``save(dir)`` / ``SymbolicStore.open(dir)`` persist raw rows,
+  representation, encoder parameters (breakpoints checked on open) and
+  the split-tree index in the JAX package's snapshot format
+  (:mod:`repro_torch.store.snapshot`), readable by either package.
+* ``build_index()`` attaches a :class:`repro_torch.index.SeriesIndex`
+  that ``append`` maintains incrementally — engine queries take
+  sublinear candidates from it with bit-identical results.
 """
 
 from __future__ import annotations
@@ -59,10 +63,14 @@ class CorpusEpoch:
     ``[0, n_rows)`` are complete and immutable, and ``rep_view(epoch=)``
     is a prefix slice.
 
-    ``epoch`` is the store version at publication (monotone counter)."""
+    ``epoch`` is the store version at publication (monotone counter);
+    ``index_n`` records how many items the attached index covered when
+    the epoch was published (equal to ``n_rows`` while an incremental
+    index is maintained; 0 without one)."""
 
     epoch: int
     n_rows: int
+    index_n: int = 0
 
 
 def epoch_rows(epoch) -> Optional[int]:
@@ -81,7 +89,8 @@ class SymbolicStore:
     ----------
     encoder:  SAX / SSAX / TSAX / STSAX instance (anything with ``T``,
               ``encode`` and ``pairwise_distance``).
-    media:    "hdd" | "ssd" | "hbm" cost-model preset.
+    media:    "hdd" | "ssd" | "hbm" cost-model preset, or pass explicit
+              ``seek_s`` / ``read_bps``.
     store_raw: when False the store keeps ONLY the representation —
               appended rows are encoded but their raw values are
               discarded (``fetch`` raises).
@@ -92,13 +101,27 @@ class SymbolicStore:
     """
 
     def __init__(self, encoder, *, media: str = "ssd",
+                 seek_s: Optional[float] = None,
+                 read_bps: Optional[float] = None,
                  store_raw: bool = True, device="cuda"):
-        if media not in MEDIA:
-            raise ValueError(f"unknown media {media!r}; options {set(MEDIA)}")
         self.device = resolve_device(device)
         self.encoder = encoder
         self.store_raw = bool(store_raw)
-        self.media = media
+        if seek_s is None or read_bps is None:
+            if media not in MEDIA:
+                raise ValueError(
+                    f"unknown media {media!r}; options {set(MEDIA)}")
+            self.seek_s = MEDIA[media][0] if seek_s is None else float(seek_s)
+            self.read_bps = (MEDIA[media][1] if read_bps is None
+                             else float(read_bps))
+            self.media = media
+        else:
+            # explicit cost model: label it by the matching preset so the
+            # media name never contradicts the numbers
+            self.seek_s, self.read_bps = float(seek_s), float(read_bps)
+            self.media = next(
+                (name for name, v in MEDIA.items()
+                 if v == (self.seek_s, self.read_bps)), "custom")
         self.T = int(encoder.T)
         self._n = 0
         self._cap = 0
@@ -106,7 +129,7 @@ class SymbolicStore:
         self._rep: Optional[list] = None   # list of (cap, ...) leaf arrays
         self._rep_is_tuple = True
         self.version = 0                   # bumped on every append
-        self.index = None                  # no index is ported yet
+        self.index = None                  # optional SeriesIndex over rows
         # the published corpus frontier, swapped atomically as the LAST
         # step of every mutation
         self._epoch = CorpusEpoch(epoch=0, n_rows=0)
@@ -115,7 +138,7 @@ class SymbolicStore:
         # one RawStore implements — delegated, not duplicated; its .data
         # is re-pointed at the live prefix after every append
         self._io = RawStore(np.empty((0, self.T), np.float32),
-                            *MEDIA[media])
+                            seek_s=self.seek_s, read_bps=self.read_bps)
 
     # -- construction -----------------------------------------------------
     @classmethod
@@ -166,7 +189,11 @@ class SymbolicStore:
         rows: (M, T) or (T,).  ``rep``: optionally the precomputed
         representation of exactly these rows — structure must match
         ``encoder.encode`` output.  Only the new rows are encoded;
-        existing rows and their representation are never touched."""
+        existing rows and their representation are never touched.  A
+        ``self.index`` built by ``build_index`` is maintained
+        incrementally through the same code path as its bulk build (an
+        index that cannot insert — a legacy ``SSaxIndex`` built from
+        precomputed features — is dropped instead)."""
         rows = np.asarray(rows, np.float32)
         if rows.ndim == 1:
             rows = rows[None]
@@ -196,13 +223,22 @@ class SymbolicStore:
         if self.store_raw:
             self._io.data = self._raw[:self._n]
         self.version += 1
+        if self.index is not None:
+            if getattr(self.index, "encoder", None) is None:
+                # a feature-only index cannot derive features from raw
+                # rows: drop it rather than serve stale coverage
+                self.index = None
+            else:
+                self.index.insert_rows(rows)   # same path as bulk build
         self._publish_epoch()
         return ids
 
     def _publish_epoch(self) -> CorpusEpoch:
         """Publish the current frontier as a new epoch — the last step of
         every mutation, so the new epoch is never observable early."""
-        ep = CorpusEpoch(epoch=self.version, n_rows=self._n)
+        ep = CorpusEpoch(
+            epoch=self.version, n_rows=self._n,
+            index_n=int(self.index.n) if self.index is not None else 0)
         self.epoch_ledger.append(ep)
         self._epoch = ep                     # atomic publish
         return ep
@@ -267,19 +303,45 @@ class SymbolicStore:
     def reset(self):
         self._io.reset()
 
-    # -- not ported yet ----------------------------------------------------
-    def build_index(self, **kwargs):
-        raise NotImplementedError(
-            "SymbolicStore.build_index is not ported yet: the split-tree "
-            "index is ROADMAP queue 1 item 6")
+    # -- index ------------------------------------------------------------
+    def build_index(self, *, leaf_fill: int = 64, max_bits: int = 8,
+                    mesh=None, n_shards: Optional[int] = None):
+        """Build (and remember) a ``repro_torch.index.SeriesIndex`` over
+        the current rows, features on the store's device.  Later
+        ``append`` calls maintain it incrementally (no rebuild); the
+        engine consumes it via ``MatchEngine.topk(..., source="index")``.
+        ``n_shards`` routes the bulk build through
+        ``SplitTree.insert_grouped`` (bit-identical to the single build);
+        ``mesh`` raises until ``core/distributed.py`` is ported."""
+        if not self.store_raw:
+            raise TypeError("store was built with store_raw=False: index "
+                            "features are derived from raw rows (index "
+                            "the view that owns the raw source instead)")
+        from repro_torch.index import SeriesIndex
+        self.index = SeriesIndex.from_store(self, leaf_fill=leaf_fill,
+                                            max_bits=max_bits,
+                                            mesh=mesh, n_shards=n_shards)
+        self._publish_epoch()        # the index split-state token changed
+        return self.index
 
-    def save(self, directory: str, **kwargs) -> str:
-        raise NotImplementedError(
-            "SymbolicStore.save is not ported yet: snapshots are ROADMAP "
-            "queue 1 item 5")
+    # -- persistence -------------------------------------------------------
+    def save(self, directory: str, *, keep: int = 3,
+             n_hosts: int = 1) -> str:
+        """Write an atomic snapshot (see ``repro_torch.store.snapshot``);
+        returns its final path.  ``n_hosts`` splits the row-indexed
+        arrays into per-host ``shard_hNNN.npz`` files."""
+        if not self.store_raw:
+            raise TypeError("store was built with store_raw=False: the "
+                            "snapshot format requires raw rows (re-derive "
+                            "the representation from the source instead)")
+        from repro_torch.store.snapshot import save_store
+        return save_store(directory, self, keep=keep, n_hosts=n_hosts)
 
     @classmethod
-    def open(cls, directory: str, **kwargs) -> "SymbolicStore":
-        raise NotImplementedError(
-            "SymbolicStore.open is not ported yet: snapshots are ROADMAP "
-            "queue 1 item 5")
+    def open(cls, directory: str, *, snap: Optional[int] = None,
+             device="cuda") -> "SymbolicStore":
+        """Reopen the latest (or a specific) snapshot from disk — one the
+        JAX package wrote too — as a store that encodes on ``device``
+        (the card unless ``device="cpu"``)."""
+        from repro_torch.store.snapshot import open_store
+        return open_store(directory, snap=snap, device=device)

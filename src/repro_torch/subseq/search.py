@@ -34,10 +34,11 @@ window id is ever fetched or verified twice.
 through the K5 windowed kernel (its plain version for a CPU view).
 
 Not ported yet, each raising ``NotImplementedError``: the window index
-(``use_index=True``, ``topk_approx``; ROADMAP queue 1 item 6), the
-sharded sweep and device-resident verification (``mesh=``,
-``verify="device"``; item 8), and tracing and metrics (``trace=``,
-``explain=``, ``metrics=``; item 4).
+(``use_index=True``, ``topk_approx``; the subsequence half of ROADMAP
+queue 1 item 6), the sharded sweep and device-resident verification
+(``mesh=``, ``verify="device"``; item 8), and subsequence tracing and
+metrics (``trace=``, ``explain=``, ``metrics=``; the subsequence half
+of item 4 — whole-series matching has them).
 """
 
 from __future__ import annotations
@@ -141,7 +142,8 @@ class SubseqEngine:
                 "ported yet: ROADMAP queue 1 item 8")
         if metrics is not None:
             raise NotImplementedError(
-                "metrics= is not ported yet: ROADMAP queue 1 item 4")
+                "subsequence metrics= is not ported yet: the subsequence "
+                "half of ROADMAP queue 1 item 4")
         self.view = view
         self.encoder = view.encoder
         self.device = view.device
@@ -198,11 +200,12 @@ class SubseqEngine:
         """
         if trace is not None or explain:
             raise NotImplementedError(
-                "tracing is not ported yet: ROADMAP queue 1 item 4")
+                "subsequence tracing is not ported yet: the subsequence "
+                "half of ROADMAP queue 1 item 4")
         if use_index is True:
             raise NotImplementedError(
-                "the window index is not ported yet: ROADMAP queue 1 "
-                "item 6")
+                "the window index is not ported yet: the subsequence "
+                "half of ROADMAP queue 1 item 6")
         zq = self.normalize_queries(queries_raw)
         bs = batch_size or self.batch_size
         n_e = epoch_rows(epoch)
@@ -247,7 +250,7 @@ class SubseqEngine:
     def topk_approx(self, queries_raw, k: int = 1, **kwargs):
         raise NotImplementedError(
             "topk_approx needs the window index, which is not ported yet: "
-            "ROADMAP queue 1 item 6")
+            "the subsequence half of ROADMAP queue 1 item 6")
 
     def _suppress(self, res, k: int, exclusion: int):
         """Greedy non-overlap filter over the verified frontier; returns

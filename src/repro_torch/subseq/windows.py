@@ -196,7 +196,7 @@ class WindowView:
     def build_index(self, **kwargs):
         raise NotImplementedError(
             "WindowView.build_index is not ported yet: the window index "
-            "is ROADMAP queue 1 item 6")
+            "is the subsequence half of ROADMAP queue 1 item 6")
 
     # -- representation ---------------------------------------------------
     def rep_view(self):

@@ -281,10 +281,16 @@ def test_engine_rejects_unported_paths(corpora):
     with pytest.raises(ValueError):
         MatchEngine(enc, RawStore.ssd(D), verify="device", device="cpu")
     eng = MatchEngine(enc, RawStore.ssd(D), device="cpu")
-    with pytest.raises(NotImplementedError):
-        eng.topk(Q, k=1, explain=True)
     with pytest.raises(ValueError):
         eng.topk(Q, k=1, source="index")
+    # a device-ordered index source needs core/distributed.py (item 8)
+    from repro_torch.store import SymbolicStore
+    store = SymbolicStore.from_rows(enc, D[:40], device="cpu")
+    store.build_index(leaf_fill=16)
+    streamed = MatchEngine(enc, store, stream_factory=lambda q: None,
+                           device="cpu")
+    with pytest.raises(NotImplementedError, match="item 8"):
+        streamed.topk(Q, k=1, source="index")
 
 
 def test_launcher_dryrun_on_cpu(capsys):

@@ -65,7 +65,8 @@ def test_engine_defaults_to_the_card():
         "cpu"
 
 
-@pytest.mark.parametrize("argv", [["--dryrun"], ["--dryrun", "--subseq"]])
+@pytest.mark.parametrize("argv", [["--dryrun"], ["--dryrun", "--subseq"],
+                                  ["--dryrun", "--index", "--explain"]])
 def test_launcher_defaults_to_the_card(argv):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default runs there")
@@ -90,6 +91,28 @@ def test_store_and_subseq_default_to_the_card():
                 make()
     view = WindowView(enc, D, device="cpu")
     assert SubseqEngine(view).device.type == "cpu"
+
+
+def test_open_and_make_engine_default_to_the_card(tmp_path):
+    """A reopened snapshot and the launcher's engine run on the card
+    unless the caller asks for the CPU: without a card they raise."""
+    from repro_torch.core import make_technique
+    from repro_torch.launch.match import make_engine
+    from repro_torch.store import SymbolicStore
+    D = np.zeros((4, 480), np.float32)
+    enc = make_technique("sax", T=480, W=48)
+    SymbolicStore.from_rows(enc, D, device="cpu").save(str(tmp_path))
+    makers = (lambda: SymbolicStore.open(str(tmp_path)),
+              lambda: make_engine("sax", D))
+    for make in makers:
+        if torch.cuda.is_available():
+            assert make().device.type == "cuda"
+        else:
+            with pytest.raises(RuntimeError, match="CUDA"):
+                make()
+    assert SymbolicStore.open(str(tmp_path), device="cpu").device.type == \
+        "cpu"
+    assert make_engine("sax", D, device="cpu").device.type == "cpu"
 
 
 def test_wrappers_never_guess_a_route():

@@ -89,10 +89,12 @@ def test_representation_only_store(X):
     assert store.n == 3 and store.data.shape == (0, T)
     with pytest.raises(TypeError):
         store.fetch([0])
-    for call in (store.build_index, lambda: store.save("never-written"),
-                 lambda: SymbolicStore.open("never-written")):
-        with pytest.raises(NotImplementedError, match="item"):
+    # the index and snapshots derive from raw rows, which it discarded
+    for call in (store.build_index, lambda: store.save("never-written")):
+        with pytest.raises(TypeError, match="store_raw"):
             call()
+    with pytest.raises(FileNotFoundError):
+        SymbolicStore.open("never-written", device="cpu")
 
 
 def test_raw_store_protocol_is_delegated(X):
