@@ -32,8 +32,11 @@ Phases, each failing loudly with a nonzero exit:
 4. Drive the index path through the launcher's ``make_engine``,
    ``SymbolicStore.build_index`` and ``MatchEngine.topk(source="index",
    explain=)`` on phase 3's corpus: the sSAX split-tree index over all
-   1,000,000 rows (leaf_fill 64; build seconds and nodes printed),
-   indexed k = 1 and 32 bitwise equal to phase 3's K1 brute force and
+   1,000,000 rows (leaf_fill 64; features through K4, routed in one
+   pass; build seconds printed; 86,512 nodes, and 176.0 / 304.6 rows
+   verified per query in 2 rounds at k = 1 / 32, as the chunk-by-chunk
+   build gave), indexed k = 1 and 32 bitwise equal to phase 3's K1
+   brute force and
    to the linear answers (phase 3's and this store's), and traced
    (``explain=True``) indexed and linear calls bitwise equal to their
    untraced calls with the same launches, their traces clean under
@@ -52,17 +55,34 @@ Phases, each failing loudly with a nonzero exit:
    exclusion 120) and SAX (k = 8), tSAX and stSAX (k = 8) over its
    first 256 rows.  Every answer must equal a K1 brute force over all
    windows bitwise (the exclusion answer its greedy non-overlap filter),
-   the K5 scan must agree away from near-ties, a row appended later
-   must be found, and a chunked window encode must equal a one-shot one
-   on the card bitwise.
+   the K5 scan must agree away from near-ties, and a chunked window
+   encode must equal a one-shot one on the card bitwise.
    Phases 3 and 5 print the split of one warm topk call (sweep, host
    argsort, verification loop) and fail unless every call's K1 launches
    equal its verification rounds (one gathered launch per round; on
    whole series every round is also one store fetch) and every sSAX
    sweep made one K2 launch (one batched sweep for all its queries).
-6. Print each path's launch counts (each kernel of a path > 0) and the
-   ``{"kernels": [...]}`` line with the launches of all three paths.
-7. Print the card's name and power limit, then the result line.
+6. Drive the window index path through ``WindowView.build_index`` and
+   ``SubseqEngine.topk(use_index=True, explain=)`` / ``topk_approx`` on
+   phase 5's views: the sSAX split-tree index over all 1,722,368
+   windows (leaf_fill 64; build seconds and nodes printed); indexed
+   sSAX k = 1, 8 and 8 with exclusion 120, each bitwise equal to phase
+   5's linear answer and its K1 brute force, printed beside the linear
+   call's windows verified, pruned fraction, rounds and rows read;
+   traced (``explain=True``) indexed and linear k = 8 calls bitwise
+   equal to their untraced calls with the same launches, clean under
+   ``check_trace``, one rendered; the engine's ``MetricsRegistry``
+   counters printed; ``topk_approx(k=8)`` at its default collect (error
+   bar printed) and at a collect of every window (bitwise exact, error
+   bar 0); SAX, tSAX and stSAX window indexes over the first 256 rows,
+   indexed k = 8 bitwise equal to linear; then 2 rows appended to the
+   sSAX view, routed into the index by ``sync`` and found through it.
+   Every call's K1 launches equal its rounds (the seed verification is
+   one), no indexed call sweeps the representation, and every linear
+   sSAX call makes one K2 launch.
+7. Print each path's launch counts (each kernel of a path > 0) and the
+   ``{"kernels": [...]}`` line with the launches of all four paths.
+8. Print the card's name and power limit, then the result line.
 
 It imports neither JAX nor the JAX package, needs the repository beside
 it, and exits nonzero without printing a result when there is no card.
@@ -90,6 +110,10 @@ SUB_CHUNK_ROWS = 38           # rows of one scan_topk launch (2.5e8 B chunk)
 SUB_CALLS = {"ssax": ((1, 0), (8, 0), (8, SUB_EXCL)), "sax": ((8, 0),),
              "tsax": ((8, 0),), "stsax": ((8, 0),)}   # (k, exclusion)
 LEAF_FILL = 64                # split-tree leaf fill factor of the index path
+# the 1M sSAX index as the chunk-by-chunk build gave it: its node
+# count, and per k the rows verified per query and the rounds, which the
+# one-pass build and the vectorized collect walk must keep
+INDEX_HELD = {"nodes": 86_512, 1: ("176.0", 2), 32: ("304.6", 2)}
 TOL = {"euclid": 1e-4, "euclid_bf16": 5e-2, "ssax_dist": 1e-4,
        "sax_dist": 1e-5, "paa": 1e-5, "paa_bf16": 2e-2,
        "windowed_euclid": 1e-3}
@@ -753,8 +777,11 @@ def index_path(torch, np, dev, main):
     idx = engine.store.index
     say(f"ssax index over {idx.n} rows: {idx.n_nodes} nodes (leaf_fill "
         f"{LEAF_FILL}) built in {t_build:.2f} s (features through K4 in "
-        f"chunks of 8,192 rows, the tree on the host); store from phase "
-        f"3's representation in {t_store:.2f} s")
+        f"chunks of 8,192 rows, routed into the tree in one pass on the "
+        f"host); store from phase 3's representation in {t_store:.2f} s")
+    if idx.n_nodes != INDEX_HELD["nodes"]:
+        fail(f"ssax index: {idx.n_nodes} nodes, not the "
+             f"{INDEX_HELD['nodes']} of the chunk-by-chunk build")
     runs = {}
     for k in KS:
         runs["index", k] = call(engine, k=k, source="index")
@@ -787,6 +814,10 @@ def index_path(torch, np, dev, main):
             say(f"explain {src}: {line}")
     for k in KS:
         (ri, wi, ci), (rl, wl, cl) = runs["index", k], runs["linear", k]
+        if (f"{ri.raw_accesses.mean():.1f}", ri.rounds) != INDEX_HELD[k]:
+            fail(f"ssax indexed k={k}: {ri.raw_accesses.mean():.1f} rows "
+                 f"verified per query in {ri.rounds} rounds, not "
+                 f"{INDEX_HELD[k]}")
         say(f"ssax N={idx.n} k={k}: indexed == linear == K1 brute force "
             f"bitwise; rows verified per query {ri.raw_accesses.mean():.1f}"
             f" indexed vs {rl.raw_accesses.mean():.1f} linear; rounds "
@@ -880,7 +911,10 @@ def index_path(torch, np, dev, main):
 
 def subseq_path(torch, np, dev):
     """Phase 5: the subsequence path, then its checks.  Returns the
-    kernels' launch counts during the path alone."""
+    kernels' launch counts during the path alone and what the window
+    index path reuses: the corpus, the queries, the rows to append, the
+    views and engines, the answers and the K1 brute force over every
+    window with its order."""
     from repro_torch.data.synthetic import season_dataset
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch.match import (
@@ -925,29 +959,17 @@ def subseq_path(torch, np, dev):
                        - before["windowed_euclid"])
         say(f"{tech} subsequence view: {view.n} windows of {n} rows "
             f"encoded in {t_enc:.2f} s")
-    # streaming: rows appended to the sSAX view are searchable at once
-    t0 = time.perf_counter()
-    views["ssax"].append(extra)
-    t_app = time.perf_counter() - t0
-    before = launch_counts()
-    t0 = time.perf_counter()
-    res_app = engines["ssax"].topk(extra[:1, 100:100 + SUB_M], k=1)
-    t_app_q = time.perf_counter() - t0
     counts = launch_counts()
     say(f"subsequence path launches: {counts}")
-    app_calls = {c: v - before[c] for c, v in counts.items()}
-    rounds_check("subsequence path", [*results.values(), (
-        res_app, None, app_calls)], exact_fetch=False)
+    rounds_check("subsequence path", results.values(), exact_fetch=False)
     sweep_check("subsequence path", [
-        c for (tech, _, _), (_, _, c) in results.items() if tech == "ssax"]
-        + [app_calls])
+        c for (tech, _, _), (_, _, c) in results.items() if tech == "ssax"])
 
     # where one sSAX k = 8 call's wall time goes (host clock, after the
     # counted run): the sweep, the host's stable argsort of the (Q,
     # n_windows) bounds, and the verification loop that is the rest
     engine = engines["ssax"]
     zq = engine.normalize_queries(Q)
-    engine.topk(Q, k=8)                  # the appended rep is on the card
     sync(torch, dev)
     t0 = time.perf_counter()
     rd = engine.repr_distances(zq)
@@ -1019,14 +1041,6 @@ def subseq_path(torch, np, dev):
             f"{N_QUERIES} queries (others near-tied), d^2 within 1e-3; "
             f"{n_launch} K5 launches; scan wall {wall:.3f} s; modeled ssd "
             f"I/O {scan.io_seconds * 1e3:.3f} ms")
-    if res_app.rows[0, 0] != SUB_ROWS:
-        fail(f"subseq: a snippet of appended row {SUB_ROWS} was found in "
-             f"row {res_app.rows[0, 0]}")
-    say(f"subseq append: 2 rows (+{2 * nw} windows) in {t_app:.2f} s; a "
-        f"snippet of row {SUB_ROWS} found there at start "
-        f"{res_app.starts[0, 0]} (d={res_app.distances[0, 0]:.3g}) in "
-        f"{t_app_q:.2f} s")
-
     # incremental == one-shot window encoding on the card, bitwise
     enc = views["ssax"].encoder
     one = WindowView(enc, D[:10], stride=SUB_STRIDE, device=dev)
@@ -1039,6 +1053,209 @@ def subseq_path(torch, np, dev):
             fail("subseq: chunked window encoding differs from one-shot")
     say(f"subseq incremental == one-shot window reps on the card "
         f"({one.n} windows; chunks of 3/4/3 rows, encode_chunk 57)")
+    return counts, dict(D=D, Q=Q, extra=extra, views=views,
+                        engines=engines, results=results, dist=dist,
+                        orders=orders)
+
+
+def window_index_path(torch, np, dev, sub):
+    """Phase 6: the window index over phase 5's views, then its checks.
+    Returns the kernels' launch counts during the path alone."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.ops import make_pairwise
+    from repro_torch.launch.match import greedy_nonoverlap, make_subseq_engine
+    from repro_torch.obs import MetricsRegistry, check_trace, render_trace
+    from repro_torch.subseq import SubseqEngine
+    D, Q, views, linear = sub["D"], sub["Q"], sub["views"], sub["results"]
+    view = views["ssax"]
+    nw = view.windows_per_row
+    dist = sub["dist"]
+    reset_launch_counts()
+
+    def call(engine, queries=Q, approx=False, **kw):
+        engine.view.reset()
+        before = launch_counts()
+        t0 = time.perf_counter()
+        res = (engine.topk_approx if approx else engine.topk)(queries, **kw)
+        wall = time.perf_counter() - t0
+        return res, wall, {n: c - before[n] for n, c in
+                           launch_counts().items()}
+
+    def brute(n_rows, k, excl):
+        """Phase 5's K1 brute force over the first ``n_rows`` rows'
+        windows: the (Q, k) ids (greedy non-overlap with an exclusion)
+        and their f32 distances as float64."""
+        d = dist[:, :n_rows * nw]
+        order = sub["orders"][n_rows * nw]
+        want = np.stack([greedy_nonoverlap(order[qi], nw, SUB_STRIDE, k,
+                                           excl) if excl else order[qi, :k]
+                         for qi in range(N_QUERIES)])
+        return want, np.take_along_axis(d, want, 1).astype(np.float64)
+
+    def same(a, b) -> bool:
+        return (np.array_equal(a.window_ids, b.window_ids)
+                and np.array_equal(a.distances, b.distances))
+
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    view.build_index(leaf_fill=LEAF_FILL)
+    sync(torch, dev)
+    t_build = time.perf_counter() - t0
+    idx, n_all = view.index, view.n
+    if not idx.n == n_all == SUB_ROWS * nw:
+        fail(f"window index covers {idx.n} of {n_all} windows")
+    say(f"ssax window index over {idx.n} windows: {idx.n_nodes} nodes "
+        f"(leaf_fill {LEAF_FILL}) built in {t_build:.2f} s (features "
+        f"through K4 one row's {nw} windows at a time, routed into the "
+        f"tree in one pass on the host)")
+    reg = MetricsRegistry()
+    engine = SubseqEngine(view, batch_size=BATCH, verify="auto",
+                          pairwise=make_pairwise(view.encoder), metrics=reg)
+    k8 = 8
+    runs = {("index", k, excl): call(engine, k=k, exclusion=excl,
+                                     use_index=True)
+            for k, excl in SUB_CALLS["ssax"]}
+    for name, use_index in (("index", True), ("linear", False)):
+        if (name, k8, 0) not in runs:
+            runs[name, k8, 0] = call(engine, k=k8, use_index=use_index)
+        runs[name + " traced", k8, 0] = call(engine, k=k8,
+                                             use_index=use_index,
+                                             explain=True)
+    approx = call(engine, approx=True, k=k8)
+    full = call(engine, approx=True, k=k8, collect=n_all)
+    small = {}
+    for tech in ("sax", "tsax", "stsax"):
+        if tech == "sax":       # phase 5's SAX view holds every row
+            v, e = make_subseq_engine(
+                tech, D[:SUB_SMALL], m=SUB_M, stride=SUB_STRIDE, L=L,
+                strength=STRENGTH, batch=BATCH, verify="auto", device=dev)
+        else:
+            v, e = views[tech], sub["engines"][tech]
+        t0 = time.perf_counter()
+        v.build_index(leaf_fill=LEAF_FILL)
+        t_small = time.perf_counter() - t0
+        small[tech] = (v.index.n_nodes, t_small,
+                       call(e, k=k8, use_index=True),
+                       call(e, k=k8, use_index=False))
+    # streaming: the rows appended to the sSAX view are routed into the
+    # window index by sync and found through it
+    t0 = time.perf_counter()
+    view.append(sub["extra"])
+    t_app = time.perf_counter() - t0
+    snippet = sub["extra"][:1, 100:100 + SUB_M]
+    found = {name: call(engine, snippet, k=1, use_index=use_index)
+             for name, use_index in (("index", True), ("linear", False))}
+    counts = launch_counts()
+    say(f"window index path launches: {counts}")
+
+    for (name, k, excl), (res, wall, calls) in runs.items():
+        want_i, want_d = brute(SUB_ROWS, k, excl)
+        if not (np.array_equal(res.window_ids, want_i)
+                and np.array_equal(res.distances, want_d)):
+            fail(f"window index: ssax {name} k={k} exclusion={excl} "
+                 f"differs from the K1 brute force over all windows")
+        if not same(res, linear["ssax", k, excl][0]):
+            fail(f"window index: ssax {name} k={k} exclusion={excl} "
+                 f"differs from phase 5's linear answer")
+    for name in ("index", "linear"):
+        (b, _, bc), (t, _, tc) = runs[name, k8, 0], runs[name + " traced",
+                                                         k8, 0]
+        if not (same(b, t) and bc == tc
+                and np.array_equal(b.raw_accesses, t.raw_accesses)
+                and (b.rounds, b.store_fetches, b.store_accesses)
+                == (t.rounds, t.store_fetches, t.store_accesses)):
+            fail(f"window index: the traced {name} call differs from the "
+                 f"untraced one ({tc} vs {bc} launches)")
+        problems = check_trace(t.trace)
+        if problems:
+            fail(f"window index: {name} trace: {problems}")
+        tr = t.trace
+        say(f"ssax windows {name} k={k8} traced: topk wall "
+            f"{runs[name + ' traced', k8, 0][1]:.3f} s = order "
+            f"{tr.span_seconds('order'):.3f} s (of which seed "
+            f"{tr.span_seconds('seed'):.3f} s) + verify "
+            f"{tr.span_seconds('verify'):.3f} s; equal to its untraced "
+            f"call bitwise with the same launches {tc}; check_trace clean")
+    for line in render_trace(runs["index traced", k8, 0][0].trace
+                             ).splitlines():
+        say(f"explain window index: {line}")
+    for (name, k, excl), (res, wall, calls) in runs.items():
+        if name != "index":
+            continue
+        lin, lwall, lcalls = linear["ssax", k, excl]
+        say(f"ssax {n_all} windows k={k}"
+            + (f" exclusion={excl}" if excl else "")
+            + f": indexed == phase 5's linear == K1 brute force bitwise; "
+            f"windows verified per query {res.raw_accesses.mean():.1f} "
+            f"indexed vs {lin.raw_accesses.mean():.1f} linear; pruned "
+            f"fraction {res.pruned_fraction.mean():.6f} vs "
+            f"{lin.pruned_fraction.mean():.6f}; rounds {res.rounds} vs "
+            f"{lin.rounds}; rows read {res.store_accesses} vs "
+            f"{lin.store_accesses}; topk wall {wall:.3f} s vs {lwall:.3f} "
+            f"s; launches {calls} vs {lcalls}")
+    (ra, wa, _), (rf, wf, _) = approx, full
+    exact = runs["index", k8, 0][0]
+    if not (same(rf, exact) and np.all(rf.error_bar == 0.0)):
+        fail("window index: topk_approx at a collect of every window is "
+             "not the exact answer with a zero error bar")
+    if not (np.all(ra.error_bar >= 0.0) and np.all(
+            ra.kth_lb <= exact.distances[:, -1] + 1e-5)):
+        fail("window index: the approximate certificate does not bound "
+             "the exact k-th distance")
+    hits = sum(int(np.array_equal(ra.window_ids[qi], exact.window_ids[qi]))
+               for qi in range(N_QUERIES))
+    say(f"ssax windows topk_approx k={k8}, collect {max(4 * k8, 32)}: "
+        f"error bar mean {ra.error_bar.mean():.6g}, max "
+        f"{ra.error_bar.max():.6g} ({int((ra.error_bar == 0).sum())}/"
+        f"{N_QUERIES} provably exact); ids == exact on {hits}/{N_QUERIES} "
+        f"queries; windows verified per query {ra.raw_accesses.mean():.1f};"
+        f" wall {wa:.3f} s. At a collect of {n_all}: bitwise the "
+        f"exact answer, error bar 0, wall {wf:.3f} s")
+    for tech, (nodes, t_small, (ri, wi, _), (rl, wl, _)) in small.items():
+        want_i, want_d = brute(SUB_SMALL, k8, 0)
+        if not (same(ri, rl) and np.array_equal(ri.window_ids, want_i)
+                and np.array_equal(ri.distances, want_d)):
+            fail(f"window index: {tech} indexed k={k8} differs from its "
+                 f"linear answer or the K1 brute force")
+        if tech != "sax" and not same(rl, linear[tech, k8, 0][0]):
+            fail(f"window index: {tech} linear differs from phase 5's")
+        say(f"{tech} window index over {SUB_SMALL * nw} windows: {nodes} "
+            f"nodes in {t_small:.2f} s; indexed k={k8} == linear == K1 "
+            f"brute force bitwise; windows verified per query "
+            f"{ri.raw_accesses.mean():.1f} vs {rl.raw_accesses.mean():.1f};"
+            f" rounds {ri.rounds} vs {rl.rounds}; topk wall {wi:.3f} s vs "
+            f"{wl:.3f} s")
+    if idx.n != view.n:
+        fail(f"window index: sync left {view.n - idx.n} appended windows "
+             f"out of the index")
+    (fi, wfi, _), (fl, wfl, _) = found["index"], found["linear"]
+    if not (same(fi, fl) and fi.rows[0, 0] == SUB_ROWS):
+        fail(f"window index: a snippet of appended row {SUB_ROWS} was found "
+             f"in row {fi.rows[0, 0]} (linear: row {fl.rows[0, 0]})")
+    say(f"window index append: 2 rows (+{2 * nw} windows) synced into the "
+        f"index in {t_app:.2f} s ({idx.n} windows, {idx.n_nodes} nodes); a "
+        f"snippet of row {SUB_ROWS} found there at start {fi.starts[0, 0]} "
+        f"(d={fi.distances[0, 0]:.3g}), indexed == linear bitwise; topk "
+        f"wall {wfi:.3f} s vs {wfl:.3f} s")
+    snap = reg.snapshot()
+    say("window index metrics: " + ", ".join(
+        f"{k}={v:g}" for k, v in sorted(snap["counters"].items())) + "; "
+        + ", ".join(f"{k} n={v['count']}"
+                    for k, v in sorted(snap["histograms"].items())))
+
+    indexed = [r for (name, _, _), r in runs.items()
+               if name.startswith("index")] + [approx, full, found["index"]]
+    indexed += [v[2] for v in small.values()]
+    if any(c["ssax_dist"] or c["sax_dist"] for _, _, c in indexed):
+        fail("window index: an indexed call swept the representation")
+    rounds_check("window index path", [*runs.values(), approx, full,
+                                       *found.values(),
+                                       *(x for v in small.values()
+                                         for x in v[2:])],
+                 exact_fetch=False)
+    sweep_check("window index path", [
+        c for (name, _, _), (_, _, c) in runs.items()
+        if name.startswith("linear")] + [found["linear"][2]])
     return counts
 
 
@@ -1140,13 +1357,21 @@ def main():
     say(f"phase 4: index path exact ({time.perf_counter() - t0:.1f} s)")
 
     t0 = time.perf_counter()
-    sub_counts = subseq_path(torch, np, dev)
+    sub_counts, sub = subseq_path(torch, np, dev)
     say(f"phase 5: subsequence path exact ({time.perf_counter() - t0:.1f} "
         f"s)")
 
-    for path, c, names in (("main", counts, MAIN_KERNELS),
-                           ("index", idx_counts, MAIN_KERNELS),
-                           ("subsequence", sub_counts, tuple(sub_counts))):
+    t0 = time.perf_counter()
+    win_counts = window_index_path(torch, np, dev, sub)
+    del sub
+    say(f"phase 6: window index path exact "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    paths = (("main", counts, MAIN_KERNELS),
+             ("index", idx_counts, MAIN_KERNELS),
+             ("subsequence", sub_counts, tuple(sub_counts)),
+             ("window index", win_counts, MAIN_KERNELS))
+    for path, c, names in paths:
         missing = [n for n in names if c[n] <= 0]
         if missing:
             fail(f"kernels never launched on the {path} path: {missing}")
@@ -1157,11 +1382,11 @@ def main():
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
             "replaces": REPLACES[name],
-            "launches": counts[name] + idx_counts[name] + sub_counts[name],
+            "launches": sum(c[name] for _, c, _ in paths),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": r["library_ms"]})
-    say(f"phase 6: every kernel launched on its paths; total "
+    say(f"phase 7: every kernel launched on its paths; total "
         f"{time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
 

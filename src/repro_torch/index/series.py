@@ -2,9 +2,9 @@
 
 One object ties the pieces together for a concrete corpus: the encoder's
 feature adapter, the split tree, and the engine protocol.  It indexes
-raw rows (``SymbolicStore`` / whole matching) — anything whose items
-the adapter's ``features`` accepts row-wise (the window index of
-subsequence matching is not wired to it yet).
+raw rows (``SymbolicStore`` / whole matching) or z-normalized windows
+(``WindowView.build_index``, item ids = window ids) — anything whose
+items the adapter's ``features`` accepts row-wise.
 
 Contracts:
 
@@ -20,8 +20,11 @@ Contracts:
   queries identically and keeps accepting inserts.
 
 Features are computed on ``device`` (the encoder's feature map, through
-the K4 PAA kernel on a card) in chunks of ``_INSERT_CHUNK`` rows; the
-tree itself is host numpy.
+the K4 PAA kernel on a card) in chunks of ``_INSERT_CHUNK`` rows, then
+stacked and routed into the host-numpy tree in ONE pass
+(:meth:`SeriesIndex.insert_chunks`): the tree is a pure function of the
+feature multiset, so this is the chunked build's tree bitwise, without
+re-walking the tree once per chunk.
 """
 
 from __future__ import annotations
@@ -36,6 +39,16 @@ from repro_torch.index.features import FeatureAdapter, adapter_for
 from repro_torch.index.tree import SplitTree
 
 _INSERT_CHUNK = 8192
+
+
+def _as_rows(rows) -> np.ndarray:
+    rows = np.asarray(rows, np.float32)
+    return rows[None] if rows.ndim == 1 else rows
+
+
+def _row_chunks(rows: np.ndarray):
+    return (rows[c0:c0 + _INSERT_CHUNK]
+            for c0 in range(0, rows.shape[0], _INSERT_CHUNK))
 
 
 class SeriesIndex:
@@ -76,41 +89,39 @@ class SeriesIndex:
     def bulk_load(self, rows, *, mesh=None, n_shards: int = None
                   ) -> np.ndarray:
         """Grouped bulk build: tree routing partitioned into
-        ``n_shards`` root subtrees.  Chunked like ``insert_rows``
-        (row-wise maps make chunking bit-identical); returns the new ids
-        in insertion order.  ``mesh`` raises (ROADMAP queue 1 item 8)."""
+        ``n_shards`` root subtrees.  Features are computed in chunks
+        like ``insert_rows`` (row-wise maps make chunking bit-identical)
+        and routed in one ``insert_grouped``; returns the new ids in
+        insertion order.  ``mesh`` raises (ROADMAP queue 1 item 8)."""
         if mesh is not None:
             raise NotImplementedError(
                 "a mesh-sharded index build needs core/distributed.py, "
                 "which is not ported yet (ROADMAP queue 1 item 8)")
-        if n_shards is None:
-            n_shards = 1
-        rows = np.asarray(rows, np.float32)
-        if rows.ndim == 1:
-            rows = rows[None]
+        rows = _as_rows(rows)
         if rows.shape[0] == 0:
             return np.empty(0, np.int64)
-        out = []
-        for c0 in range(0, rows.shape[0], _INSERT_CHUNK):
-            chunk = rows[c0:c0 + _INSERT_CHUNK]
-            feats = self.adapter.features(chunk)
-            out.append(self.tree.insert_grouped(feats, max(n_shards, 1)))
-        return np.concatenate(out)
+        return self.tree.insert_grouped(self._stacked_features(
+            _row_chunks(rows)), max(n_shards or 1, 1))
 
     def insert_rows(self, rows) -> np.ndarray:
         """Compute features of new rows (chunked — features are row-wise
-        maps, so chunking is bit-identical) and route them into the
-        tree; returns their item ids (insertion order)."""
-        rows = np.asarray(rows, np.float32)
-        if rows.ndim == 1:
-            rows = rows[None]
-        if rows.shape[0] == 0:
-            return np.empty(0, np.int64)
-        out = []
-        for c0 in range(0, rows.shape[0], _INSERT_CHUNK):
-            chunk = rows[c0:c0 + _INSERT_CHUNK]
-            out.append(self.tree.insert(self.adapter.features(chunk)))
-        return np.concatenate(out)
+        maps, so chunking is bit-identical) and route them into the tree
+        in one pass; returns their item ids (insertion order)."""
+        return self.insert_chunks(_row_chunks(_as_rows(rows)))
+
+    def insert_chunks(self, chunks) -> np.ndarray:
+        """Features of each row chunk of an iterable (on the index's
+        device), stacked on the host and routed with ONE
+        ``SplitTree.insert`` — the bulk build of a whole corpus or of
+        every window (``WindowView.build_index``).  Returns the item ids
+        in insertion order."""
+        return self.tree.insert(self._stacked_features(chunks))
+
+    def _stacked_features(self, chunks) -> np.ndarray:
+        feats = [self.adapter.features(c) for c in chunks]
+        if not feats:
+            return np.empty((0, self.adapter.D), np.float32)
+        return feats[0] if len(feats) == 1 else np.concatenate(feats)
 
     # -- views -----------------------------------------------------------
     @property

@@ -23,10 +23,15 @@ Traversal (used by :class:`repro_torch.index.candidates.TreeCandidates`):
 * ``seed_candidates`` — best-first leaf walk (heap on the box bound)
   until >= k member ids are collected; verifying them yields an upper
   bound U on the true k-th-NN distance.
-* ``collect_bounds`` — walk the tree pruning subtrees whose box bound
-  exceeds U; surviving leaf members are bounded individually with the
-  adapter's exact feature distance.  O(survivors) output, never
-  corpus-width.
+* ``collect_bounds`` — prune subtrees whose box bound exceeds U;
+  surviving leaf members are bounded individually with the adapter's
+  exact feature distance.  O(survivors) output, never corpus-width.
+  It is vectorized over a flattened node table (``_NodeTable``, built
+  lazily in the walk's visit order and dropped on every change to the
+  tree): one numpy pass evaluates every node's box bound, survival
+  propagates from parent to child level by level, and ``member_lb``
+  bounds the members of every surviving leaf in one blocked pass — the
+  same (ids, bounds), in the same order, as a node-by-node walk.
 
 Children are always iterated in symbol order, so two structurally equal
 trees traverse identically regardless of construction history.
@@ -34,7 +39,9 @@ trees traverse identically regardless of construction history.
 
 from __future__ import annotations
 
+import os
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import Optional
 
@@ -66,6 +73,71 @@ def _new_node(bits: np.ndarray) -> TreeNode:
                     hi=np.full(d, -np.inf, np.float32))
 
 
+_BLOCK = 8192               # rows per row-wise numpy call of the walk
+_THREADS = 8                # threads per row-wise pass, at most
+
+
+def _rowwise(fn, n: int) -> np.ndarray:
+    """``fn(lo, hi)`` — a row-wise numpy map over rows [lo, hi) — over
+    rows [0, n) in blocks of ``_BLOCK`` rows (their temporaries stay in
+    cache), the blocks spread over a few threads (numpy releases the GIL
+    in its loops) and concatenated in order.  A row's value does not
+    depend on its block, so this is one call over all rows, bitwise."""
+    if n <= _BLOCK:
+        return fn(0, n)
+    starts = range(0, n, _BLOCK)
+    workers = min(_THREADS, len(starts), os.cpu_count() or 1)
+    with ThreadPoolExecutor(max_workers=workers) as pool:
+        return np.concatenate(list(pool.map(
+            lambda lo: fn(lo, min(lo + _BLOCK, n)), starts)))
+
+
+@dataclass
+class _NodeTable:
+    """The tree flattened in ``collect_bounds``' visit order (depth
+    first, children pushed in ascending symbol order and popped last
+    first), so a node's parent precedes it and the surviving leaves in
+    table order are the leaves the node-by-node walk reaches, in the
+    order it reaches them."""
+
+    lo: np.ndarray            # (n_nodes, D) float32 member boxes
+    hi: np.ndarray
+    parent: np.ndarray        # (n_nodes,) int64, -1 at the root
+    levels: list              # node indices at depth 1, 2, ...
+    is_leaf: np.ndarray       # (n_nodes,) bool
+    start: np.ndarray         # (n_nodes,) leaf offset into ``ids``
+    count: np.ndarray         # (n_nodes,) leaf size (0 when internal)
+    ids: np.ndarray           # every leaf's member ids, in table order
+
+    @classmethod
+    def build(cls, root: TreeNode) -> "_NodeTable":
+        nodes, parent, depth = [], [], []
+        stack = [(root, -1, 0)]
+        while stack:
+            node, par, dep = stack.pop()
+            nid = len(nodes)
+            nodes.append(node)
+            parent.append(par)
+            depth.append(dep)
+            if not node.is_leaf:
+                for s in sorted(node.children):
+                    stack.append((node.children[s], nid, dep + 1))
+        depth = np.asarray(depth, np.int64)
+        count = np.asarray([nd.ids.size if nd.is_leaf else 0
+                            for nd in nodes], np.int64)
+        leaf_ids = [nd.ids for nd in nodes if nd.is_leaf]
+        return cls(
+            lo=np.ascontiguousarray(np.stack([nd.lo for nd in nodes])),
+            hi=np.ascontiguousarray(np.stack([nd.hi for nd in nodes])),
+            parent=np.asarray(parent, np.int64),
+            levels=[np.nonzero(depth == d)[0]
+                    for d in range(1, int(depth.max()) + 1)],
+            is_leaf=np.asarray([nd.is_leaf for nd in nodes]),
+            start=np.concatenate([[0], np.cumsum(count)[:-1]]),
+            count=count,
+            ids=np.concatenate(leaf_ids).astype(np.int64))
+
+
 class SplitTree:
     """Incremental adaptive split tree over one feature adapter.
 
@@ -90,6 +162,7 @@ class SplitTree:
         self.root = _new_node(np.zeros(self.D, np.int8))
         self.n_nodes = 1
         self._breaks: dict = {}       # (dim, bits) -> breakpoint array
+        self._table: Optional[_NodeTable] = None   # collect's node table
         # structure mutex: a split rewires ``children`` dicts while a
         # traversal iterates them, so inserts and walks are serialized.
         # Walks are O(survivors) numpy work; verification — the
@@ -138,6 +211,7 @@ class SplitTree:
             self._feats[self._n:self._n + m] = feats
             ids = np.arange(self._n, self._n + m, dtype=np.int64)
             self._n += m
+            self._table = None
             route(self, self.root, ids)
         return ids
 
@@ -167,6 +241,7 @@ class SplitTree:
             self._feats[self._n:self._n + m] = feats
             ids = np.arange(self._n, self._n + m, dtype=np.int64)
             self._n += m
+            self._table = None
             addr = root_addresses(self, feats, n_groups)
             for a in np.unique(addr):
                 route(self, self.root, ids[addr == a])
@@ -261,30 +336,44 @@ class SplitTree:
         beat ``thresh`` (subtrees pruned by the box bound, members by the
         exact feature bound) — O(survivors), never corpus-width.
         ``max_id`` filters to the members visible as-of an epoch
-        frontier (see the traversal note above)."""
-        ids_out, lb_out = [], []
+        frontier (see the traversal note above).
+
+        Vectorized over the node table: every node's ``bbox_lb`` in one
+        pass (the same elementwise float ops and the same row sum over a
+        contiguous last axis), a node survives when its bound and all
+        its ancestors' are not above ``thresh``, and the members of the
+        surviving leaves are bounded by ``member_lb`` (a row-wise map;
+        both passes run in blocks, :func:`_rowwise`).  The result is the
+        node-by-node walk's, order included."""
+        w = self.adapter.weights
+
+        def box_lb(lo, hi):
+            gap = np.maximum(0.0, np.maximum(tab.lo[lo:hi] - qf,
+                                             qf - tab.hi[lo:hi]))
+            return np.sqrt(np.sum(w * gap * gap, axis=-1))
+
         with self._lock:
-            stack = [self.root]
-            while stack:
-                node = stack.pop()
-                if self.bbox_lb(qf, node) > thresh:
-                    continue
-                if node.is_leaf:
-                    ids = node.ids
-                    if max_id is not None:
-                        ids = ids[ids < max_id]
-                    if ids.size:
-                        mlb = self.member_lb(qf, ids)
-                        keep = mlb <= thresh
-                        ids_out.append(ids[keep])
-                        lb_out.append(mlb[keep])
-                else:
-                    for s in sorted(node.children):
-                        stack.append(node.children[s])
-        if not ids_out:
-            return np.empty(0, np.int64), np.empty(0)
-        return (np.concatenate(ids_out).astype(np.int64),
-                np.concatenate(lb_out))
+            if self._table is None:
+                self._table = _NodeTable.build(self.root)
+            tab = self._table
+            alive = ~(_rowwise(box_lb, tab.lo.shape[0]) > thresh)
+            for lvl in tab.levels:
+                alive[lvl] &= alive[tab.parent[lvl]]
+            leaves = np.nonzero(alive & tab.is_leaf)[0]
+            cnt = tab.count[leaves]
+            total = int(cnt.sum())
+            ends = np.cumsum(cnt)
+            pos = np.arange(total, dtype=np.int64) \
+                + np.repeat(tab.start[leaves] - (ends - cnt), cnt)
+            ids = tab.ids[pos]
+            if max_id is not None:
+                ids = ids[ids < max_id]
+            if ids.size == 0:
+                return np.empty(0, np.int64), np.empty(0)
+            mlb = _rowwise(lambda lo, hi: self.member_lb(qf, ids[lo:hi]),
+                           ids.size)
+        keep = mlb <= thresh
+        return ids[keep], mlb[keep]
 
     def leaf_membership(self) -> list:
         """Canonical structure fingerprint: preorder (symbol-ordered)
@@ -373,6 +462,8 @@ class SplitTree:
             parent = int(arrays["node_parent"][i])
             if parent >= 0:
                 nodes[parent].children[int(arrays["node_sym"][i])] = node
-        self.root = nodes[0]
-        self.n_nodes = n_nodes
+        with self._lock:
+            self.root = nodes[0]
+            self.n_nodes = n_nodes
+            self._table = None
         return self

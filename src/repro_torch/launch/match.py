@@ -31,10 +31,15 @@ long series, every z-normalized window of length ``--window`` at
 localized anywhere in the corpus through the pruned windowed scan
 (``subseq.SubseqEngine``), checked against a K1 brute force over every
 window and compared with the brute-force distance profile of the K5
-windowed kernel (``SubseqEngine.scan_topk``):
+windowed kernel (``SubseqEngine.scan_topk``).  With ``--index`` it
+builds the split-tree window index (``WindowView.build_index``) and
+serves indexed exact top-k, checked bitwise against the linear window
+sweep; ``--explain`` prints each call's plan and the ``subseq.*``
+metrics:
 
     PYTHONPATH=src python -m repro_torch.launch.match \
-        --subseq --n 2048 --T 3600 --window 240 --stride 4 --k 8
+        --subseq --n 2048 --T 3600 --window 240 --stride 4 --k 8 \
+        --index --explain
 """
 
 from __future__ import annotations
@@ -177,9 +182,10 @@ def subseq_queries(D: np.ndarray, m: int, n_queries: int,
 def make_subseq_engine(technique: str, D: np.ndarray, *, m: int,
                        stride: int, L: int = 10, strength: float = 0.7,
                        batch: int = 256, store: str = "ssd",
-                       verify: str = "auto", device="cuda"):
+                       verify: str = "auto", metrics=None, device="cuda"):
     """A ``WindowView`` of ``D`` (window ``m``, W = m / L) and a
-    ``SubseqEngine`` over it with the kernel sweep for SAX / sSAX."""
+    ``SubseqEngine`` over it with the kernel sweep for SAX / sSAX,
+    recording into ``metrics`` when one is given."""
     from repro_torch.core.techniques import make_technique
     from repro_torch.kernels.ops import make_pairwise
     from repro_torch.subseq import SubseqEngine, WindowView
@@ -187,14 +193,17 @@ def make_subseq_engine(technique: str, D: np.ndarray, *, m: int,
                           r2_season=strength)
     view = WindowView(tech, D, stride=stride, media=store, device=device)
     return view, SubseqEngine(view, batch_size=batch, verify=verify,
-                              pairwise=make_pairwise(tech))
+                              pairwise=make_pairwise(tech), metrics=metrics)
 
 
 def run_subseq(args, device):
     """Subsequence mode: encode every window of an (n, T) long-series
     corpus, localize snippet queries exactly, check them against a K1
-    brute force over every window and the K5 brute-force scan."""
+    brute force over every window and the K5 brute-force scan; with
+    ``--index``, serve from the window index and check it bitwise
+    against the linear window sweep."""
     from repro_torch.data.synthetic import season_dataset
+    from repro_torch.obs import REGISTRY
     m, s = args.window, args.stride
     if m % args.L:
         raise SystemExit(f"--window {m} must be a multiple of --L {args.L}")
@@ -209,15 +218,25 @@ def run_subseq(args, device):
     view, engine = make_subseq_engine(
         args.technique, D, m=m, stride=s, L=args.L, strength=args.strength,
         batch=args.batch, store=args.store, verify=args.verify,
-        device=device)
+        metrics=REGISTRY, device=device)
     print(f"[subseq] {args.technique} over {args.n} x {args.T} "
           f"-> {view.n} windows (m={m}, stride={s}) on {device}; "
           f"encode {time.perf_counter() - t0:.2f}s")
 
+    if args.index:
+        t0 = time.perf_counter()
+        view.build_index(leaf_fill=args.leaf_fill)
+        print(f"[subseq] window index: {view.index.n_nodes} nodes over "
+              f"{view.index.n} windows (leaf_fill {args.leaf_fill}) in "
+              f"{time.perf_counter() - t0:.2f}s")
+
     view.reset()
     t0 = time.perf_counter()
-    res = engine.topk(Q, k=args.k, exclusion=args.exclusion)
+    res = engine.topk(Q, k=args.k, exclusion=args.exclusion,
+                      explain=args.explain)
     dt = time.perf_counter() - t0
+    if args.explain:
+        _explain(res.trace)
     t0 = time.perf_counter()
     scan = engine.scan_topk(Q, k=args.k)
     dt_scan = time.perf_counter() - t0
@@ -246,7 +265,23 @@ def run_subseq(args, device):
           f"{scan.io_seconds * 1e3:.2f}ms; wall {dt:.2f}s "
           f"(scan {dt_scan:.2f}s)")
 
-    # streaming: new long series are searchable immediately
+    if args.index:
+        # cold-cache boundary: the indexed run above left its I/O counts
+        # and a warm row buffer behind
+        view.reset()
+        lin = engine.topk(Q, k=args.k, exclusion=args.exclusion,
+                          use_index=False, explain=args.explain)
+        if args.explain:
+            _explain(lin.trace)
+        agree = (np.array_equal(res.window_ids, lin.window_ids)
+                 and np.array_equal(res.distances, lin.distances))
+        print(f"[subseq] index vs linear sweep: bitwise identical "
+              f"{'yes' if agree else 'NO'}; windows examined/query "
+              f"{res.raw_accesses.mean():.0f} (indexed) vs "
+              f"{lin.raw_accesses.mean():.0f} (linear) of {view.n}")
+
+    # streaming: new long series are searchable immediately (the window
+    # index, when built, is maintained by the append)
     extra = season_dataset(2, args.T, args.L, args.strength, seed=8)
     t0 = time.perf_counter()
     view.append(extra)
@@ -257,6 +292,8 @@ def run_subseq(args, device):
     res2 = engine.topk(extra[:1, o2:o2 + m], k=1)
     print(f"[subseq] query of appended row -> row {res2.rows[0, 0]} "
           f"start {res2.starts[0, 0]} d={res2.distances[0, 0]:.4f}")
+    if args.explain:
+        _print_metrics(REGISTRY)
 
 
 def main(argv=None):
@@ -295,16 +332,16 @@ def main(argv=None):
                     help="save the store (raw + rep + index) after the run")
     ap.add_argument("--index", action=argparse.BooleanOptionalAction,
                     default=False,
-                    help="build the split-tree index and serve indexed "
-                    "exact queries beside the linear sweep (fewer rows "
-                    "verified; the tree's collect walk runs on the host, "
-                    "so the call is not faster yet)")
+                    help="build the split-tree index (over the windows "
+                    "with --subseq) and serve indexed exact queries beside "
+                    "the linear sweep (fewer rows verified; the tree walk "
+                    "runs on the host)")
     ap.add_argument("--leaf-fill", type=int, default=64,
                     help="index leaf fill factor (split threshold)")
     ap.add_argument("--explain", action="store_true",
                     help="print a per-query plan (spans, candidates, "
-                    "pruning, I/O, rounds) for every whole-series call "
-                    "and fail if a required span is missing")
+                    "pruning, I/O, rounds) for every exact call and fail "
+                    "if a required span is missing")
     ap.add_argument("--dryrun", action="store_true",
                     help="shrink every dimension to a seconds-scale smoke")
     args = ap.parse_args(argv)
@@ -324,11 +361,9 @@ def main(argv=None):
     from repro_torch.data.synthetic import season_corpus
     device = resolve_device(args.device)
     if args.subseq:
-        if args.index or args.explain or args.ingest or args.snapshot_dir:
-            raise SystemExit("--index, --explain, --ingest and "
-                             "--snapshot-dir serve whole-series matching "
-                             "only; the subsequence path has none of them "
-                             "yet")
+        if args.ingest or args.snapshot_dir:
+            raise SystemExit("--ingest and --snapshot-dir serve "
+                             "whole-series matching only")
         return run_subseq(args, device)
     from repro_torch.obs import REGISTRY
     n_ingest = args.ingest * args.ingest_rows

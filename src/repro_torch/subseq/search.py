@@ -20,29 +20,41 @@ window distance, the result is bit-identical to a brute-force windowed
 scan that z-normalizes windows the same way (``znorm_windows``) and
 distances them with the same verifier.
 
+Candidate generation is linear (the (Q, n_windows) sweep) or — when the
+view carries a split-tree index (``view.build_index()``) — sublinear
+through ``repro_torch.index``: the tree's seed/collect walk hands
+``topk_verify`` a compact candidate set instead of all N*S windows, with
+bit-identical results (same verifier, same tie-break).
+
 Non-overlap suppression: with ``exclusion > 0``, windows that overlap an
 already-selected better match (same source row, |start - start'| <
 exclusion samples) are suppressed.  Selection stays exact: candidates
 are taken greedily in the verified (distance, window id) order, and the
 frontier is widened until k non-overlapping survivors exist or the
-window set is exhausted.  Widening reuses the verified frontier: every
-(window id, true distance) pair ever verified is accumulated, the next
-round is seeded with the best of them and excludes the rest, so no
-window id is ever fetched or verified twice.
+window set is exhausted.  Widening reuses the verified frontier on both
+candidate paths: every (window id, true distance) pair ever verified is
+accumulated, the next round is seeded with the best of them and
+excludes the rest, so no window id is ever fetched or verified twice.
+
+Observability: ``trace=`` / ``explain=True`` record a per-query
+``repro_torch.obs`` trace (spans ``order`` and ``verify``, rounds,
+candidate and I/O counts) and ``metrics=`` a ``MetricsRegistry``'s
+``subseq.*`` counters, gauge and latency histogram; every recording
+site sits behind ``trace is None`` / ``metrics is None``, so an
+unobserved call runs exactly as before and an observed one returns the
+same result.
 
 ``scan_topk`` is the brute-force baseline: the full distance profile
 through the K5 windowed kernel (its plain version for a CPU view).
 
-Not ported yet, each raising ``NotImplementedError``: the window index
-(``use_index=True``, ``topk_approx``; the subsequence half of ROADMAP
-queue 1 item 6), the sharded sweep and device-resident verification
-(``mesh=``, ``verify="device"``; item 8), and subsequence tracing and
-metrics (``trace=``, ``explain=``, ``metrics=``; the subsequence half
-of item 4 — whole-series matching has them).
+Not ported yet, each raising ``NotImplementedError``: the sharded sweep
+and device-resident verification (``mesh=``, ``verify="device"``; ROADMAP
+queue 1 item 8).
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 from typing import Callable, Optional
 
@@ -52,8 +64,17 @@ import torch
 from repro_torch.core.engine import (
     DeviceRepCache, make_verifier, merge_topk_numpy, topk_verify)
 from repro_torch.kernels import ops
+from repro_torch.obs.trace import maybe_span
 from repro_torch.store.symbolic import epoch_rows
 from repro_torch.subseq.windows import WindowView, znorm_windows
+
+
+def _accumulate(acc: dict, res) -> None:
+    """Add one widening round's store accounting and rounds to ``acc``."""
+    acc["rows"] += res.store_accesses
+    acc["fetches"] += res.store_fetches
+    acc["io"] += res.io_seconds
+    acc["rounds"] += res.rounds
 
 
 class _VerifiedSet:
@@ -130,7 +151,10 @@ class SubseqEngine:
     pairwise:     representation sweep ``(rq, rx) -> (Q, N)``; defaults
                   to the encoder's plain ``pairwise_distance``.
                   ``kernels.ops.make_pairwise`` gives the K2/K3 sweep.
-    mesh, metrics: not ported yet; must be None.
+    metrics:      optional ``repro_torch.obs.MetricsRegistry`` (None:
+                  record nothing); the metric names are the JAX
+                  package's ``subseq.*``.
+    mesh:         not ported yet; must be None.
     """
 
     def __init__(self, view: WindowView, *, batch_size: int = 64,
@@ -140,15 +164,12 @@ class SubseqEngine:
             raise NotImplementedError(
                 'the sharded window sweep (mesh=, verify="device") is not '
                 "ported yet: ROADMAP queue 1 item 8")
-        if metrics is not None:
-            raise NotImplementedError(
-                "subsequence metrics= is not ported yet: the subsequence "
-                "half of ROADMAP queue 1 item 4")
         self.view = view
         self.encoder = view.encoder
         self.device = view.device
         self.batch_size = batch_size
         self.verify_mode = verify
+        self.metrics = metrics
         self.verifier = make_verifier(verify, self.device)
         self.merge = merge_topk_numpy
         self._pw = pairwise or self.encoder.pairwise_distance
@@ -189,34 +210,89 @@ class SubseqEngine:
         exclusion: minimum start-sample distance (same source row) between
         two reported matches; 0 disables suppression.
 
-        use_index: "auto" or False take the linear window sweep (no
-        window index is ported yet); True raises.
+        use_index: "auto" (use ``view.index`` when built), True (require
+        it), or False (force the linear window sweep).  Indexed and
+        linear candidate generation verify through the same k-th-best
+        early-stop scan and return bit-identical results — the index
+        only changes how many windows are examined.
+
+        trace / explain: record a per-query ``repro_torch.obs`` query
+        trace (``explain=True`` creates one and attaches it as
+        ``res.trace``); bit-identical results and accounting either way.
 
         epoch: a ``view.current_epoch()`` frontier (or plain window
         count) pinning the answer to windows visible at that frontier.
-
-        trace / explain: accepted only as None / False until tracing is
-        ported.
         """
-        if trace is not None or explain:
-            raise NotImplementedError(
-                "subsequence tracing is not ported yet: the subsequence "
-                "half of ROADMAP queue 1 item 4")
-        if use_index is True:
-            raise NotImplementedError(
-                "the window index is not ported yet: the subsequence "
-                "half of ROADMAP queue 1 item 6")
+        if explain and trace is None:
+            from repro_torch.obs import Trace
+            trace = Trace("subseq.topk")
+        observing = trace is not None or self.metrics is not None
+        t0 = time.perf_counter() if observing else 0.0
+        res = self._topk(queries_raw, k, exclusion, batch_size, use_index,
+                         trace, epoch)
+        if observing:
+            self._observe(trace, res, k, time.perf_counter() - t0)
+        if trace is not None:
+            res.trace = trace
+        return res
+
+    def _observe(self, trace, res: SubseqResult, k: int,
+                 wall_s: float) -> None:
+        """Post-call trace / registry recording: reads only the finished
+        result, so it never perturbs it."""
+        if trace is not None:
+            trace.meta.update(engine="subseq", k=int(k),
+                              q_n=int(res.window_ids.shape[0]),
+                              total=int(self.view.n),
+                              verify=self.verify_mode)
+            trace.set("wall_s", wall_s)
+            trace.set("pruning_power", res.pruned_fraction.copy())
+            # deduplicated "generated": the accumulated meta total counts
+            # re-handed candidates once per widening round; the noted id
+            # layer reports the true union size alongside it
+            gu = trace.unique_counts("generated", res.window_ids.shape[0])
+            if gu is not None:
+                trace.set("generated_unique", gu)
+        if self.metrics is not None:
+            m = self.metrics
+            m.counter("subseq.queries").inc(res.window_ids.shape[0])
+            m.counter("subseq.windows_verified").inc(
+                int(res.raw_accesses.sum()))
+            m.counter("subseq.rows_fetched").inc(int(res.store_accesses))
+            m.counter("subseq.seeks").inc(int(res.store_fetches))
+            m.counter("subseq.modeled_io_s").inc(float(res.io_seconds))
+            m.gauge("subseq.pruning_power").set(
+                float(res.pruned_fraction.mean()))
+            m.histogram("subseq.topk_latency_s").observe(wall_s)
+
+    def _topk(self, queries_raw, k: int, exclusion: int,
+              batch_size: Optional[int], use_index: object,
+              trace, epoch=None) -> SubseqResult:
         zq = self.normalize_queries(queries_raw)
         bs = batch_size or self.batch_size
         n_e = epoch_rows(epoch)
-        rd = self.repr_distances(zq)
-        if n_e is not None:
-            rd = rd[:, :n_e]       # prefix-stable: as-of read is a slice
-        nw = rd.shape[1]
+        idx = self.view.index if use_index in ("auto", True) else None
+        if use_index is True and idx is None:
+            raise ValueError("use_index=True but the view has no index; "
+                             "call view.build_index() first")
+        if trace is not None:
+            trace.set("source", "index" if idx is not None else "linear")
+            if n_e is not None:
+                trace.meta["epoch_rows"] = int(n_e)
         acc = {"rows": 0, "fetches": 0, "io": 0.0, "rounds": 0}
+        if idx is not None:
+            return self._topk_indexed(zq, idx, k, exclusion, bs, acc,
+                                      trace, epoch=n_e)
+        with maybe_span(trace, "order"):
+            rd = self.repr_distances(zq)
+            if n_e is not None:
+                rd = rd[:, :n_e]   # prefix-stable: as-of read is a slice
+        nw = rd.shape[1]
         if exclusion <= 0:
-            res = topk_verify(zq, rd, self.view, k=k, batch_size=bs,
-                              verifier=self.verifier, merge=self.merge)
+            with maybe_span(trace, "verify"):
+                res = topk_verify(zq, rd, self.view, k=k, batch_size=bs,
+                                  verifier=self.verifier, merge=self.merge,
+                                  trace=trace)
             return self._wrap(res.indices, res.distances, res, nw, acc)
 
         # widen the verified frontier until k non-overlapping survivors
@@ -229,16 +305,17 @@ class SubseqEngine:
         ver = _VerifiedSet(zq.shape[0])
         k_fetch = min(nw, max(4 * k, k + 8))
         rd = np.array(rd)                  # writeable: columns get masked
+        widen_round = 0
         while True:
             init_d, init_i = ver.frontier(k_fetch)
-            res = topk_verify(zq, rd, self.view, k=k_fetch, batch_size=bs,
-                              verifier=self.verifier, merge=self.merge,
-                              init_d=init_d, init_i=init_i,
-                              on_verified=ver.add)
-            acc["rows"] += res.store_accesses
-            acc["fetches"] += res.store_fetches
-            acc["io"] += res.io_seconds
-            acc["rounds"] += res.rounds
+            with maybe_span(trace, "verify", round=widen_round):
+                res = topk_verify(zq, rd, self.view, k=k_fetch,
+                                  batch_size=bs, verifier=self.verifier,
+                                  merge=self.merge, init_d=init_d,
+                                  init_i=init_i, on_verified=ver.add,
+                                  trace=trace)
+            widen_round += 1
+            _accumulate(acc, res)
             ids, dists, full = self._suppress(res, k, exclusion)
             if full or k_fetch >= nw:
                 return self._wrap(ids, dists, res, nw, acc,
@@ -247,10 +324,98 @@ class SubseqEngine:
                 rd[qi, ver.ids(qi)] = np.inf
             k_fetch = min(nw, 2 * k_fetch)
 
-    def topk_approx(self, queries_raw, k: int = 1, **kwargs):
-        raise NotImplementedError(
-            "topk_approx needs the window index, which is not ported yet: "
-            "the subsequence half of ROADMAP queue 1 item 6")
+    def topk_approx(self, queries_raw, k: int = 1, *,
+                    collect: Optional[int] = None,
+                    batch_size: Optional[int] = None,
+                    trace=None, explain: bool = False,
+                    epoch=None) -> SubseqResult:
+        """Anytime/approximate window top-k through the index's bounded
+        collect (requires ``view.build_index()``): exact seed walk, at
+        most ``collect`` (default ``max(4 * k, 32)``) collected
+        candidates per query.  The result carries ``kth_lb`` /
+        ``error_bar`` — the same certificate contract as
+        ``MatchEngine.topk_approx``; an error bar of zero proves the
+        answer exact despite the cap."""
+        idx = self.view.index
+        if idx is None:
+            raise ValueError("topk_approx needs the window index; call "
+                             "view.build_index() first")
+        n_e = epoch_rows(epoch)
+        self._check_cover(idx, n_e)
+        if explain and trace is None:
+            from repro_torch.obs import Trace
+            trace = Trace("subseq.topk")
+        observing = trace is not None or self.metrics is not None
+        t0 = time.perf_counter() if observing else 0.0
+        zq = self.normalize_queries(queries_raw)
+        if trace is not None:
+            trace.set("source", "index-approx")
+            trace.set("exact", False)
+        res = idx.topk(zq, self.view, k=k,
+                       batch_size=batch_size or self.batch_size,
+                       verifier=self.verifier, merge=self.merge,
+                       trace=trace, epoch=n_e,
+                       approx_collect=(collect if collect is not None
+                                       else max(4 * k, 32)))
+        total = self.view.n if n_e is None else min(self.view.n, n_e)
+        out = self._wrap(res.indices, res.distances, res, total,
+                         {"rows": 0, "fetches": 0, "io": 0.0, "rounds": 0})
+        out.kth_lb = res.kth_lb
+        out.error_bar = res.error_bar
+        if observing:
+            self._observe(trace, out, k, time.perf_counter() - t0)
+        if trace is not None:
+            out.trace = trace
+        return out
+
+    def _check_cover(self, idx, epoch: Optional[int]) -> None:
+        """The index must cover the live view, or reach a pinned epoch
+        (windows synced past the pin are filtered by the as-of
+        traversal, not a staleness error)."""
+        if epoch is None:
+            if idx.n != self.view.n:
+                raise ValueError(f"window index covers {idx.n} of "
+                                 f"{self.view.n} windows; call "
+                                 f"view.sync()")
+        elif idx.n < epoch:
+            raise ValueError(f"window index covers {idx.n} windows, "
+                             f"epoch pins {epoch}; call view.sync()")
+
+    def _topk_indexed(self, zq, idx, k: int, exclusion: int, bs: int,
+                      acc: dict, trace=None,
+                      epoch: Optional[int] = None) -> SubseqResult:
+        """Indexed candidate generation: route the tree's compact
+        candidate set through the same verification scan
+        (``repro_torch.index.candidates.topk_from_source``) —
+        bit-identical to the linear sweep.  With suppression, widen at
+        doubled k_fetch, handing ``TreeCandidates`` the accumulated
+        verified frontier and seen-id set — each round only verifies
+        never-seen windows (each round remains an exact top-k_fetch, so
+        greedy selection stays exact).  ``epoch`` (visible window count)
+        needs the index to reach only the pinned frontier."""
+        self._check_cover(idx, epoch)
+        nw_total = self.view.n if epoch is None else int(epoch)
+        common = dict(batch_size=bs, verifier=self.verifier,
+                      merge=self.merge, epoch=epoch, trace=trace)
+        if exclusion <= 0:
+            res = idx.topk(zq, self.view, k=k, **common)
+            return self._wrap(res.indices, res.distances, res, nw_total,
+                              acc)
+        ver = _VerifiedSet(zq.shape[0])
+        k_fetch = min(nw_total, max(4 * k, k + 8))
+        while True:
+            init_d, init_i = ver.frontier(k_fetch)
+            seen = ([ver.ids(qi) for qi in range(zq.shape[0])]
+                    if init_d is not None else None)
+            res = idx.topk(zq, self.view, k=k_fetch, on_verified=ver.add,
+                           prior_d=init_d, prior_i=init_i, seen=seen,
+                           **common)
+            _accumulate(acc, res)
+            ids, dists, full = self._suppress(res, k, exclusion)
+            if full or k_fetch >= nw_total:
+                return self._wrap(ids, dists, res, nw_total, acc,
+                                  accumulated=True)
+            k_fetch = min(nw_total, 2 * k_fetch)
 
     def _suppress(self, res, k: int, exclusion: int):
         """Greedy non-overlap filter over the verified frontier; returns

@@ -14,6 +14,12 @@ N * S window matrix:
 * **Append-aware.**  ``append(rows)`` pushes rows into the source and
   encodes only the new rows' windows; ``sync()`` picks up rows appended
   to a shared source out-of-band.
+* **Indexable.**  ``build_index()`` attaches a
+  :class:`repro_torch.index.SeriesIndex` whose tree items are the
+  windows themselves (ids = window ids), built from every window's
+  features routed in one pass; ``sync`` maintains it incrementally and
+  ``SubseqEngine`` takes sublinear candidates from it — bit-identical
+  results to the linear window sweep.
 * **Verification protocol over window ids.**  ``fetch(window_ids)``
   returns the z-normalized windows themselves, but bills the I/O cost
   model for the *deduplicated underlying rows* the windows live in,
@@ -24,8 +30,6 @@ N * S window matrix:
 Window ids are dense row-major: ``wid = row * S + j`` covers
 ``source.data[row, j*stride : j*stride + m]`` where ``S`` is the
 per-row window count; ``locate`` translates back.
-
-The window index (``build_index``) is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -90,7 +94,7 @@ class WindowView:
         self._rep = SymbolicStore(encoder, media=media, store_raw=False,
                                   device=device)
         self.device = self._rep.device
-        self.index = None                  # the window index: item 6
+        self.index = None                  # optional SeriesIndex (windows)
         if source is None:
             self.source = None
         elif hasattr(source, "fetch") and hasattr(source, "data"):
@@ -137,8 +141,16 @@ class WindowView:
 
     def current_epoch(self) -> CorpusEpoch:
         """Pinnable frontier for subsequence queries (the unit is WINDOW
-        ids, not source rows)."""
-        return self._rep.current_epoch()
+        ids, not source rows).  Mid-``sync`` a chunk's representation
+        append publishes before its index insert, so when an index
+        exists the frontier is clamped to the index's item count — a
+        pinned epoch is then covered by BOTH structures and the indexed
+        and linear paths answer it identically."""
+        ep = self._rep.current_epoch()
+        if self.index is not None and self.index.n < ep.n_rows:
+            ep = CorpusEpoch(epoch=ep.epoch, n_rows=int(self.index.n),
+                             index_n=int(self.index.n))
+        return ep
 
     def locate(self, window_ids):
         """Window ids -> (source row, start sample); -1 ids pass through."""
@@ -174,18 +186,25 @@ class WindowView:
     def sync(self) -> int:
         """Encode windows of any source rows not yet windowed (rows
         appended through a shared source land here); returns the number
-        of windows added."""
+        of windows added.  A window index built by ``build_index`` is
+        maintained incrementally: each chunk's windows are routed into
+        the split tree in window-id order — the tree is the one a bulk
+        build over all windows gives, so no rebuild is ever needed."""
         added = 0
         n_rows = self.source.data.shape[0]
         for z in self._window_chunks(self._rows_done, n_rows):
             self._rep.append(z)
+            if self.index is not None:
+                self.index.insert_rows(z)
             added += z.shape[0]
         self._rows_done = n_rows
         return added
 
     def _window_chunks(self, row_lo: int, row_hi: int):
         """Yield the z-normalized windows of source rows [row_lo, row_hi)
-        in window-id order, ``encode_chunk`` windows at a time."""
+        in window-id order, ``encode_chunk`` windows at a time — the ONE
+        extraction path both incremental ``sync`` and the bulk
+        ``build_index`` consume, so the two cannot drift apart."""
         nw = self.windows_per_row
         for r in range(row_lo, row_hi):
             wv = np.lib.stride_tricks.sliding_window_view(
@@ -193,10 +212,24 @@ class WindowView:
             for c0 in range(0, nw, self.encode_chunk):
                 yield znorm_windows(wv[c0:c0 + self.encode_chunk])
 
-    def build_index(self, **kwargs):
-        raise NotImplementedError(
-            "WindowView.build_index is not ported yet: the window index "
-            "is the subsequence half of ROADMAP queue 1 item 6")
+    # -- index ------------------------------------------------------------
+    def build_index(self, *, leaf_fill: int = 64, max_bits: int = 8):
+        """Build (and remember) a ``repro_torch.index.SeriesIndex`` over
+        every window currently encoded, on the view's device — tree item
+        ids ARE window ids (both are dense row-major insertion order).
+        Every window's features come through ``_window_chunks`` (K4 on a
+        card, one chunk at a time) and are routed into the tree in one
+        pass (``SeriesIndex.insert_chunks``).  Windows of rows appended
+        afterwards are inserted incrementally by ``sync``;
+        ``SubseqEngine`` then generates candidates from the tree instead
+        of sweeping all N*S windows linearly."""
+        from repro_torch.index import SeriesIndex
+        idx = SeriesIndex(self.encoder, leaf_fill=leaf_fill,
+                          max_bits=max_bits, device=self.device)
+        idx.insert_chunks(self._window_chunks(0, self._rows_done))
+        assert idx.n == self.n, (idx.n, self.n)
+        self.index = idx
+        return idx
 
     # -- representation ---------------------------------------------------
     def rep_view(self):

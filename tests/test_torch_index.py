@@ -10,7 +10,9 @@ logic is held on identical inputs); indexed top-k ids are equal and
 distances within rtol 1e-5.  Within the port: indexed equals linear
 bitwise, incremental equals bulk, a grouped build equals a single one,
 ``epoch=`` equals a frozen store, and the approximate tier's
-certificate holds."""
+certificate holds.  The vectorized collect walk equals the reference's
+node-by-node walk bitwise, order included, and a one-pass
+``insert_rows`` equals the reference's chunk-by-chunk build."""
 
 import dataclasses
 
@@ -126,6 +128,107 @@ def test_tree_from_reference_features_is_reference_tree(reference, tech,
     meta, arrays = tree.to_snapshot()
     ref_meta, ref_arrays = ref_tree.to_snapshot()
     assert meta == ref_meta and sorted(arrays) == sorted(ref_arrays)
+    for key, want in ref_arrays.items():
+        assert arrays[key].dtype == want.dtype, key
+        np.testing.assert_array_equal(arrays[key], want, err_msg=key)
+
+
+@pytest.fixture(scope="module")
+def walk_trees(season):
+    """The JAX package's sSAX split trees to walk, with their items in
+    raw space and their queries: whole series at D = 58 (W = 48) and
+    windows at D = 34 (m = 240, W = 24, stride 8 over 12 rows)."""
+    from repro.core import make_technique as ref_make
+    from repro.store import SymbolicStore as RefStore
+    from repro.subseq import WindowView as RefView
+    from repro.subseq.windows import znorm_windows as ref_znorm
+    Q, D = season
+    enc = ref_make("ssax", T=T, W=48, L=L)
+    store = RefStore.from_rows(enc, D)
+    store.build_index(leaf_fill=8, max_bits=5)
+    wenc = ref_make("ssax", T=240, W=24, L=L)
+    view = RefView(wenc, D[:12], stride=8)
+    view.build_index(leaf_fill=8, max_bits=5)
+    return {"series58": (enc, store.index, D, Q),
+            "windows34": (wenc, view.index, view.fetch(np.arange(view.n)),
+                          ref_znorm(Q[:, 100:340]))}
+
+
+@pytest.mark.parametrize("kind", ["series58", "windows34"])
+def test_collect_bounds_equals_reference_walk(walk_trees, kind,
+                                              monkeypatch):
+    """The vectorized collect walk returns the reference's node-by-node
+    walk's (ids, bounds), order included, bitwise: thresholds 0, a seed
+    frontier's k-th distance and inf, live and as-of ``max_id``, on a
+    half-built tree whose node table is cached and then on the same
+    tree after an ``insert`` (which must drop the cached table)."""
+    from repro.index.tree import SplitTree as RefTree
+    enc, ridx, items, queries = walk_trees[kind]
+    feats = ridx.tree.feats
+    tree = SplitTree(adapter_for(from_reference(
+        type(enc).__name__, dataclasses.asdict(enc)), "cpu"),
+        leaf_fill=8, max_bits=5)
+    assert tree.D == {"series58": 58, "windows34": 34}[kind]
+    monkeypatch.setattr(tree, "bbox_lb", lambda *a: pytest.fail(
+        "collect_bounds evaluated a box bound node by node"))
+    qf = ridx.adapter.features(queries)
+    half = feats.shape[0] // 2
+    ref_half = RefTree(ridx.adapter, leaf_fill=8, max_bits=5)
+    for t in (tree, ref_half):
+        t.insert(feats[:half])
+
+    def check(want_tree):
+        for qi in range(qf.shape[0]):
+            seeds = want_tree.seed_candidates(qf[qi], 5)
+            d = np.sort(np.sqrt(np.sum(np.square(
+                items[seeds] - queries[qi]), axis=-1)))
+            for thresh in (0.0, float(d[4]), np.inf):
+                for max_id in (None, want_tree.n // 3):
+                    got = tree.collect_bounds(qf[qi], thresh, max_id)
+                    want = want_tree.collect_bounds(qf[qi], thresh, max_id)
+                    for g, w in zip(got, want):
+                        assert g.dtype == w.dtype
+                        np.testing.assert_array_equal(g, w)
+        assert tree._table is not None
+
+    check(ref_half)
+    tree.insert(feats[half:])
+    assert tree._table is None
+    check(ridx.tree)
+
+
+@pytest.mark.parametrize("tech", TECHS)
+def test_one_pass_insert_rows_equals_reference_chunked_build(season, tech,
+                                                             monkeypatch):
+    """``insert_rows`` computes features chunk by chunk and routes them
+    with ONE ``SplitTree.insert``; fed the reference's features, its
+    tree is the reference's chunk-by-chunk build bitwise."""
+    import repro.index.series as ref_series
+    from repro.core import make_technique as ref_make
+    from repro.index import SeriesIndex as RefIndex
+    import repro_torch.index.series as port_series
+    _, D = season
+    monkeypatch.setattr(ref_series, "_INSERT_CHUNK", 37)
+    monkeypatch.setattr(port_series, "_INSERT_CHUNK", 37)
+    renc = ref_make(tech, T=T, W=W, L=L)
+    ridx = RefIndex(renc, leaf_fill=16, max_bits=5)
+    ridx.insert_rows(D)                       # 9 chunks, 9 tree walks
+    idx = SeriesIndex(from_reference(type(renc).__name__,
+                                     dataclasses.asdict(renc)),
+                      leaf_fill=16, max_bits=5, device="cpu")
+    feature_calls, inserts = [], []
+    monkeypatch.setattr(idx.adapter, "features", lambda rows: (
+        feature_calls.append(len(rows)) or ridx.adapter.features(rows)))
+    real_insert = idx.tree.insert
+    monkeypatch.setattr(idx.tree, "insert", lambda f: (
+        inserts.append(len(f)) or real_insert(f)))
+    ids = idx.insert_rows(D)
+    assert len(feature_calls) == 9 and inserts == [N]
+    np.testing.assert_array_equal(ids, np.arange(N))
+    assert idx.tree.leaf_membership() == ridx.tree.leaf_membership()
+    (meta, arrays), (ref_meta, ref_arrays) = (idx.tree.to_snapshot(),
+                                              ridx.tree.to_snapshot())
+    assert meta == ref_meta
     for key, want in ref_arrays.items():
         assert arrays[key].dtype == want.dtype, key
         np.testing.assert_array_equal(arrays[key], want, err_msg=key)

@@ -338,19 +338,10 @@ def test_scan_topk_agrees_with_engine(corpus):
 def test_unported_paths_raise(corpus):
     X, Q = corpus
     eng = _engine(X, "sax", 7)
-    for kw in ({"use_index": True}, {"explain": True}, {"trace": object()}):
-        with pytest.raises(NotImplementedError, match="item"):
-            eng.topk(Q, k=1, **kw)
     assert eng.topk(Q, k=1, use_index=False).window_ids.shape == (3, 1)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        eng.topk_approx(Q, k=1)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        eng.view.build_index()
     for kw in ({"mesh": object()}, {"verify": "device"}):
         with pytest.raises(NotImplementedError, match="item 8"):
             SubseqEngine(eng.view, **kw)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        SubseqEngine(eng.view, metrics=object())
     with pytest.raises(ValueError):
         eng.topk(np.zeros((1, M + 1), np.float32))
 
