@@ -23,12 +23,14 @@ Phases, each failing loudly with a nonzero exit:
    call.  K5 runs at strides 4 and 1 and at one ``scan_topk`` launch
    (38 rows), each timed launch checked on its first rows; K4 at the
    window shape.
-3. Drive the main path through the launcher's ``make_engine`` and
-   ``MatchEngine.topk``: sSAX and SAX exact top-k (k = 1, 32) over a
-   1,000,000 x 960 season corpus, tSAX and stSAX over its first 65,536
-   rows, ``verify="auto"``.  Every exact answer must equal a K1 brute
-   force bitwise, and its ids a plain-version brute force away from
-   near-ties.
+3. Drive the main path through the launcher's ``make_engine`` (the
+   sharded engine service on one virtual shard: candidates ordered on
+   the card) and ``MatchEngine.topk``: sSAX and SAX exact top-k (k = 1,
+   32) over a 1,000,000 x 960 season corpus, tSAX and stSAX over its
+   first 65,536 rows, ``verify="auto"``.  Every exact answer must equal
+   a K1 brute force bitwise, and its ids a plain-version brute force
+   away from near-ties.  A plain ``MatchEngine`` over the same store
+   (host argsort) must give the same answer, rounds and rows.
 4. Drive the index path through the launcher's ``make_engine``,
    ``SymbolicStore.build_index`` and ``MatchEngine.topk(source="index",
    explain=)`` on phase 3's corpus: the sSAX split-tree index over all
@@ -47,18 +49,22 @@ Phases, each failing loudly with a nonzero exit:
    appended after reopening are indexed and found).  Every call's K1
    launches equal its rounds and its store fetches: the seed
    verification is one round (one fetch, one gathered K1 launch) and
-   each scan round another.
+   each scan round another.  The launcher's engine orders the tree's
+   union bounds on the card (``TreeCandidates(device_order=True)``); a
+   plain engine's host order must give the same answer, rows and
+   rounds at k = 32.
 5. Drive the subsequence path through the launcher's building blocks
    (``make_subseq_engine``, ``SubseqEngine.topk`` and ``scan_topk``):
    every z-normalized window (m = 240, stride 4) of a 2,048 x 3,600
    season corpus, 1,722,368 windows, sSAX (k = 1, 8, and 8 with
-   exclusion 120) and SAX (k = 8), tSAX and stSAX (k = 8) over its
-   first 256 rows.  Every answer must equal a K1 brute force over all
+   exclusion 120), and SAX, tSAX and stSAX (k = 8) over its first 256
+   rows (215,296 windows; SAX barely prunes windows).  Every answer must equal a K1 brute force over all
    windows bitwise (the exclusion answer its greedy non-overlap filter),
    the K5 scan must agree away from near-ties, and a chunked window
    encode must equal a one-shot one on the card bitwise.
    Phases 3 and 5 print the split of one warm topk call (sweep, host
-   argsort, verification loop) and fail unless every call's K1 launches
+   argsort or device order, verification loop) and fail unless every
+   call's K1 launches
    equal its verification rounds (one gathered launch per round; on
    whole series every round is also one store fetch) and every sSAX
    sweep made one K2 launch (one batched sweep for all its queries).
@@ -80,9 +86,23 @@ Phases, each failing loudly with a nonzero exit:
    Every call's K1 launches equal its rounds (the seed verification is
    one), no indexed call sweeps the representation, and every linear
    sSAX call makes one K2 launch.
-7. Print each path's launch counts (each kernel of a path > 0) and the
-   ``{"kernels": [...]}`` line with the launches of all four paths.
-8. Print the card's name and power limit, then the result line.
+7. Drive the device-resident path (``core.distributed``) on 4 virtual
+   shards of the card: ``make_engine_service`` over phase 3's corpus for
+   sSAX and SAX with ``verify="device"`` and ``"host"`` at k = 1 and 32
+   (the ingest's encode / store append / mirror upload split printed),
+   each answer, its rounds, rows and K1 launches equal to phase 3's and
+   the K1 brute force, no raw row and no candidate order on the host;
+   ingest while serving (3 rows, a tail of 3, then 4,096: answers equal
+   the K1 brute force over the grown corpus, appended rows found, an
+   epoch pinned between answers as then, each ingest uploading only its
+   head-aligned rows); then ``SubseqEngine(mesh=, verify="device")`` on
+   phase 5's sSAX view (k = 1, 8, and 8 with exclusion 120, pinned to
+   phase 5's rows), bitwise phase 5's answers and rounds, with no
+   window row moved to the host and the card's window z-normalization
+   equal to the host's bitwise.  Peak device memory printed.
+8. Print each path's launch counts (each kernel of a path > 0) and the
+   ``{"kernels": [...]}`` line with the launches of all five paths.
+9. Print the card's name and power limit, then the result line.
 
 It imports neither JAX nor the JAX package, needs the repository beside
 it, and exits nonzero without printing a result when there is no card.
@@ -110,6 +130,7 @@ SUB_CHUNK_ROWS = 38           # rows of one scan_topk launch (2.5e8 B chunk)
 SUB_CALLS = {"ssax": ((1, 0), (8, 0), (8, SUB_EXCL)), "sax": ((8, 0),),
              "tsax": ((8, 0),), "stsax": ((8, 0),)}   # (k, exclusion)
 LEAF_FILL = 64                # split-tree leaf fill factor of the index path
+DEV_SHARDS = 4                # virtual shards of the device-resident path
 # the 1M sSAX index as the chunk-by-chunk build gave it: its node
 # count, and per k the rows verified per query and the rounds, which the
 # one-pass build and the vectorized collect walk must keep
@@ -607,25 +628,74 @@ def kernel_phase(torch, ops, ref, dev):
 
 def split(torch, np, dev, engines, Q):
     """Where one warm 8-query topk call's wall time goes, for sSAX and
-    SAX at k = 32 (host clock): the sweep (query encode, one K2 launch
-    for all queries or one K3 launch per query, bounds to the host), the host's stable argsort of the
-    (Q, N) bounds, and the verification loop (fetch, K1, merge) that is
-    the rest."""
+    SAX at k = 32 (host clock), in both candidate orders over the same
+    store.  Host order (a plain ``MatchEngine``): the sweep (query
+    encode, one K2 launch for all queries or one K3 launch per query,
+    bounds to the host), the host's stable argsort of the (Q, N) bounds,
+    and the verification loop (fetch, K1, merge) that is the rest.
+    Device order (the launcher's sharded engine service, when the tree
+    has one): the sweep into the mirrors' natural order, the stable
+    device sort, and the verification loop.  The two orders must give
+    the same answer, rounds and rows.  Returns {tech: (sweep, order,
+    rest) seconds} of the host order."""
+    from repro_torch.core.engine import MatchEngine
+    from repro_torch.kernels.ops import make_pairwise
+    out = {}
     for tech in ("ssax", "sax"):
         engine, k = engines[tech], max(KS)
+        plain = MatchEngine(engine.encoder, engine.store, batch_size=BATCH,
+                            verify="auto",
+                            pairwise=make_pairwise(engine.encoder),
+                            device=dev)
+        plain.topk(Q, k=k)             # warm: uploads the representation
         sync(torch, dev)
         t0 = time.perf_counter()
-        rd = engine.repr_distances(Q)
+        rd = plain.repr_distances(Q)
         t_sweep = time.perf_counter() - t0
         t0 = time.perf_counter()
         np.argsort(rd, axis=1, kind="stable")
         t_sort = time.perf_counter() - t0
         t0 = time.perf_counter()
-        engine.topk(Q, k=k)
+        res_h = plain.topk(Q, k=k)
         t_all = time.perf_counter() - t0
-        say(f"breakdown {tech} N={N_MAIN} k={k}: topk {t_all:.3f} s = sweep "
-            f"{t_sweep:.3f} s + host argsort {t_sort:.3f} s + verification "
-            f"loop {t_all - t_sweep - t_sort:.3f} s")
+        out[tech] = (t_sweep, t_sort, t_all - t_sweep - t_sort)
+        say(f"breakdown {tech} N={N_MAIN} k={k}, host order: topk "
+            f"{t_all:.3f} s = sweep {t_sweep:.3f} s + host argsort "
+            f"{t_sort:.3f} s + verification loop "
+            f"{t_all - t_sweep - t_sort:.3f} s")
+        del plain, rd
+        sweep = getattr(engine, "sweep", None)
+        if sweep is None:              # an earlier tree: no device order
+            continue
+        t_dsweep, t_order = device_order_split(torch, dev, sweep, Q)
+        t0 = time.perf_counter()
+        res_d = engine.topk(Q, k=k)
+        t_dall = time.perf_counter() - t0
+        say(f"breakdown {tech} N={N_MAIN} k={k}, device order "
+            f"({sweep.n_shards} shard): topk {t_dall:.3f} s = sweep "
+            f"{t_dsweep:.3f} s + device order {t_order:.3f} s + "
+            f"verification loop {t_dall - t_dsweep - t_order:.3f} s")
+        if not (same_answer(np, res_h, res_d) and res_h.rounds == res_d.rounds
+                and np.array_equal(res_h.raw_accesses, res_d.raw_accesses)):
+            fail(f"{tech} k={k}: the device order's answer, rounds or rows "
+                 f"differ from the host order's")
+    return out
+
+
+def device_order_split(torch, dev, sweep, Q):
+    """Host-clock seconds of a sharded sweep's two steps before
+    verification, each fenced: the sweep (query encode and one pass over
+    the mirrors into natural id order) and the stable device sort."""
+    from repro_torch.core.distributed import _order_stream
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    rep_q, _ = sweep._encode_queries(Q)
+    b = sweep._natural_bounds(rep_q)
+    sync(torch, dev)
+    t_sweep = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _order_stream(b, width=b.shape[1])        # ends in a host copy
+    return t_sweep, time.perf_counter() - t0
 
 
 def split_only(torch, np, dev):
@@ -690,8 +760,8 @@ def main_path(torch, np, dev):
     sweep_check("main path", [c for (tech, _), (_, _, c) in results.items()
                               if tech == "ssax"])
 
-    split(torch, np, dev, engines, Q)
-    rep_ssax = tuple(t.cpu().numpy() for t in engines["ssax"].rep)
+    host_split = split(torch, np, dev, engines, Q)
+    rep_ssax = tuple(np.array(a) for a in engines["ssax"].store.rep_view())
     engines.clear()
     brute = {}
 
@@ -730,7 +800,7 @@ def main_path(torch, np, dev):
                 f"wall {wall:.3f} s; "
                 f"launches {calls}")
     return counts, dict(Q=Q, D=D, rep_ssax=rep_ssax, brute=brute,
-                        results=results)
+                        results=results, host_split=host_split)
 
 
 def same_answer(np, a, b) -> bool:
@@ -789,7 +859,26 @@ def index_path(torch, np, dev, main):
     for src, source in (("index", "index"), ("linear", None)):
         runs[src + " traced", max(KS)] = call(engine, k=max(KS),
                                               source=source, explain=True)
-    all_calls = list(runs.values())
+    # the launcher's engine orders the tree's union bounds on the device
+    # (TreeCandidates(device_order=True)); a plain engine over the same
+    # store orders them on the host, and must answer the same way with
+    # the same rows and rounds
+    plain = MatchEngine(engine.encoder, engine.store, batch_size=BATCH,
+                        verify="auto", pairwise=make_pairwise(engine.encoder),
+                        device=dev)
+    host_order = call(plain, k=max(KS), source="index")
+    del plain
+    all_calls = list(runs.values()) + [host_order]
+    (rd_, wd_, _), (rh_, wh_, _) = runs["index", max(KS)], host_order
+    if not (same_answer(np, rd_, rh_) and rd_.rounds == rh_.rounds
+            and np.array_equal(rd_.raw_accesses, rh_.raw_accesses)):
+        fail(f"ssax indexed k={max(KS)}: the device-ordered union differs "
+             f"from the host-ordered one in answer, rows or rounds")
+    say(f"ssax indexed k={max(KS)}: device-ordered union (TreeCandidates("
+        f"device_order=True)) == host-ordered bitwise; rows verified per "
+        f"query {rd_.raw_accesses.mean():.1f} vs {rh_.raw_accesses.mean():.1f}"
+        f"; rounds {rd_.rounds} vs {rh_.rounds}; topk wall {wd_:.3f} s vs "
+        f"{wh_:.3f} s")
 
     for (name, k), (res, wall, calls) in runs.items():
         bf_i, bf_d = brute["ssax"]
@@ -931,7 +1020,9 @@ def subseq_path(torch, np, dev):
     say(f"subsequence corpus {D.shape} f32 + {N_QUERIES} snippet queries "
         f"(m={SUB_M}) generated in {time.perf_counter() - t0:.1f} s")
 
-    n_rows = {"ssax": SUB_ROWS, "sax": SUB_ROWS, "tsax": SUB_SMALL,
+    # SAX barely prunes windows (PERF.md section 4): its call runs over the
+    # first SUB_SMALL rows, as tSAX and stSAX do
+    n_rows = {"ssax": SUB_ROWS, "sax": SUB_SMALL, "tsax": SUB_SMALL,
               "stsax": SUB_SMALL}
     results, scans, views, engines = {}, {}, {}, {}
     reset_launch_counts()
@@ -1063,10 +1154,10 @@ def window_index_path(torch, np, dev, sub):
     Returns the kernels' launch counts during the path alone."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.kernels.ops import make_pairwise
-    from repro_torch.launch.match import greedy_nonoverlap, make_subseq_engine
+    from repro_torch.launch.match import greedy_nonoverlap
     from repro_torch.obs import MetricsRegistry, check_trace, render_trace
     from repro_torch.subseq import SubseqEngine
-    D, Q, views, linear = sub["D"], sub["Q"], sub["views"], sub["results"]
+    Q, views, linear = sub["Q"], sub["views"], sub["results"]
     view = views["ssax"]
     nw = view.windows_per_row
     dist = sub["dist"]
@@ -1125,12 +1216,7 @@ def window_index_path(torch, np, dev, sub):
     full = call(engine, approx=True, k=k8, collect=n_all)
     small = {}
     for tech in ("sax", "tsax", "stsax"):
-        if tech == "sax":       # phase 5's SAX view holds every row
-            v, e = make_subseq_engine(
-                tech, D[:SUB_SMALL], m=SUB_M, stride=SUB_STRIDE, L=L,
-                strength=STRENGTH, batch=BATCH, verify="auto", device=dev)
-        else:
-            v, e = views[tech], sub["engines"][tech]
+        v, e = views[tech], sub["engines"][tech]
         t0 = time.perf_counter()
         v.build_index(leaf_fill=LEAF_FILL)
         t_small = time.perf_counter() - t0
@@ -1217,7 +1303,7 @@ def window_index_path(torch, np, dev, sub):
                 and np.array_equal(ri.distances, want_d)):
             fail(f"window index: {tech} indexed k={k8} differs from its "
                  f"linear answer or the K1 brute force")
-        if tech != "sax" and not same(rl, linear[tech, k8, 0][0]):
+        if not same(rl, linear[tech, k8, 0][0]):
             fail(f"window index: {tech} linear differs from phase 5's")
         say(f"{tech} window index over {SUB_SMALL * nw} windows: {nodes} "
             f"nodes in {t_small:.2f} s; indexed k={k8} == linear == K1 "
@@ -1257,6 +1343,266 @@ def window_index_path(torch, np, dev, sub):
         c for (name, _, _), (_, _, c) in runs.items()
         if name.startswith("linear")] + [found["linear"][2]])
     return counts
+
+
+def device_path(torch, np, dev, main, sub):
+    """Phase 7: the device-resident path — ``make_engine_service`` and
+    ``SubseqEngine(mesh=)`` over ``make_mesh(DEV_SHARDS)`` — on phase 3's
+    corpus and phase 5's windows, then its checks.  Returns the kernels'
+    launch counts during the path alone."""
+    from repro_torch.core.distributed import make_engine_service, make_mesh
+    from repro_torch.core.normalize import znormalize
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.ops import make_pairwise
+    from repro_torch.launch.match import (
+        greedy_nonoverlap, kernel_bruteforce, launcher_technique)
+    from repro_torch.obs import MetricsRegistry
+    from repro_torch.store import SymbolicStore
+    from repro_torch.subseq import SubseqEngine, znorm_windows
+    from repro_torch.data.synthetic import season_corpus
+    Q, D, brute, linear = main["Q"], main["D"], main["brute"], \
+        main["results"]
+    mesh = make_mesh(DEV_SHARDS, dev)
+    all_calls, k2_calls = [], []
+
+    def call(engine, queries, **kw):
+        engine.store.reset()
+        before = launch_counts()
+        t0 = time.perf_counter()
+        res = engine.topk(queries, **kw)
+        wall = time.perf_counter() - t0
+        out = (res, wall, {n: c - before[n] for n, c in
+                           launch_counts().items()})
+        all_calls.append(out)
+        return out
+
+    def merged_brute(extra, k):
+        """The exact sSAX-corpus answer over D ++ ``extra`` by K1: phase
+        3's brute force over D merged with one over ``extra`` by
+        (distance, id) — what a frozen store of those rows answers."""
+        bi, bd = brute["ssax"]
+        ei, ed = kernel_bruteforce(Q, extra, min(k, len(extra)), dev)
+        all_i = np.concatenate([bi[:, :k], ei + N_MAIN], axis=1)
+        all_d = np.concatenate([bd[:, :k], ed], axis=1)
+        sel = np.stack([np.lexsort((all_i[r], all_d[r]))[:k]
+                        for r in range(all_i.shape[0])])
+        return (np.take_along_axis(all_i, sel, 1),
+                np.take_along_axis(all_d, sel, 1).astype(np.float64))
+
+    # the rows ingested while serving, and the frozen answers after each
+    # ingest, computed before the path's launches are counted
+    extra = season_corpus(4099, T, L, STRENGTH, per_series_strength=True,
+                          seed=3)
+    frozen = [merged_brute(extra[:hi], max(KS)) for hi in (3, 4099)]
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    for tech in ("ssax", "sax"):
+        enc = launcher_technique(tech, T, L, STRENGTH)
+        sym = SymbolicStore(enc, device=dev)
+        regs = {v: MetricsRegistry() for v in ("device", "host")}
+        engines = {v: make_engine_service(
+            enc, None, mesh, store=sym, batch_size=BATCH, verify=v,
+            pairwise=make_pairwise(enc), metrics=regs[v])
+            for v in ("device", "host")}
+        sweep = engines["device"].sweep
+        # the ingest's set-up split (ROADMAP P3): encode, store append,
+        # mirror upload
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        leaves = sweep._encode_chunk(D)
+        sync(torch, dev)
+        t_enc = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sym.append(D, rep=leaves)
+        t_app = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sweep._sync()
+        sync(torch, dev)
+        t_up = time.perf_counter() - t0
+        row_bytes = 4 * T + sum(a.nbytes for a in leaves) // N_MAIN
+        if sweep.h2d_bytes != N_MAIN * row_bytes:
+            fail(f"{tech}: the first sync uploaded {sweep.h2d_bytes} bytes, "
+                 f"not the {N_MAIN * row_bytes} of the rows and their "
+                 f"representation")
+        say(f"{tech} N={N_MAIN} set-up on {DEV_SHARDS} virtual shards "
+            f"(make_engine_service, verify=device): encode (sharded, K4) "
+            f"{t_enc:.3f} s + store append {t_app:.3f} s + mirror upload "
+            f"(raw + representation, {sweep.h2d_bytes} bytes) {t_up:.3f} s")
+        del leaves
+        t_sweep, t_order = device_order_split(torch, dev, sweep, Q)
+        hs = main["host_split"][tech]
+        for verify in ("device", "host"):
+            for k in KS:
+                res, wall, calls = call(engines[verify], Q, k=k)
+                if tech == "ssax":
+                    k2_calls.append(calls)
+                bf_i, bf_d = brute[tech]
+                p3, _, p3_calls = linear[tech, k]
+                if not (np.array_equal(res.indices, bf_i[:, :k])
+                        and np.array_equal(res.distances,
+                                           bf_d[:, :k].astype(np.float64))):
+                    fail(f"device path {tech} k={k} verify={verify}: "
+                         f"differs from the K1 brute force")
+                if not (same_answer(np, res, p3) and res.rounds == p3.rounds
+                        and np.array_equal(res.raw_accesses, p3.raw_accesses)
+                        and calls["euclid"] == p3_calls["euclid"]):
+                    fail(f"device path {tech} k={k} verify={verify}: answer, "
+                         f"rounds ({res.rounds} vs {p3.rounds}), rows or K1 "
+                         f"launches ({calls['euclid']} vs "
+                         f"{p3_calls['euclid']}) differ from phase 3's")
+                if verify == "device" and res.store_accesses:
+                    fail(f"device path {tech} k={k}: {res.store_accesses} "
+                         f"rows fetched to the host")
+                say(f"device path {tech} N={N_MAIN} k={k} verify={verify}: "
+                    f"== phase 3 == K1 brute force bitwise; rounds "
+                    f"{res.rounds}, rows/query {res.raw_accesses.mean():.1f},"
+                    f" K1 launches {calls['euclid']} (phase 3: "
+                    f"{p3_calls['euclid']}); rows to host "
+                    f"{res.store_accesses}; topk wall {wall:.3f} s = sweep "
+                    f"{t_sweep:.3f} s + device order {t_order:.3f} s + "
+                    f"verification {wall - t_sweep - t_order:.3f} s (phase "
+                    f"3's host order: sweep {hs[0]:.3f} s + host argsort "
+                    f"{hs[1]:.3f} s + verification {hs[2]:.3f} s); "
+                    f"launches {calls}")
+        for verify, reg in regs.items():
+            c = reg.snapshot()["counters"]
+            if c.get("match.host_order_bytes") != 0 or (
+                    verify == "device" and c.get("match.rows_to_host") != 0):
+                fail(f"device path {tech} verify={verify}: transfer "
+                     f"counters {c}")
+        say(f"device path {tech}: match.host_order_bytes 0 on both routes, "
+            f"match.rows_to_host {regs['device'].snapshot()['counters']['match.rows_to_host']:g} "
+            f"on the device route; peak device memory so far "
+            f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
+        if tech == "ssax":
+            ingest_while_serving(np, engines["device"], Q, extra, frozen,
+                                 row_bytes, call)
+        del engines, sweep, sym
+
+    # windows: phase 5's sSAX view (phase 6 appended 2 rows to it; the
+    # epoch pins phase 5's 2,048 rows), device verification
+    view, zQ = sub["views"]["ssax"], sub["Q"]
+    nw = view.windows_per_row
+    n_e = SUB_ROWS * nw
+    w = np.lib.stride_tricks.sliding_window_view(
+        sub["D"][:64], SUB_M, axis=1)[:, ::SUB_STRIDE].reshape(-1, SUB_M)
+    z_dev = znormalize(torch.as_tensor(np.ascontiguousarray(w)).to(dev))
+    if not np.array_equal(z_dev.cpu().numpy(), znorm_windows(w)):
+        fail("window z-normalization on the card differs from the host's")
+    # why its root is taken in f64: the card's f32 square root is not
+    # the CPU's on every input, the f64 one rounded to f32 is
+    v = torch.as_tensor(np.random.default_rng(0).random(1 << 20)
+                        .astype(np.float32) * 100)
+    roots = {name: int((f(v.to(dev)).cpu() != f(v)).sum())
+             for name, f in (("f32", torch.sqrt),
+                             ("f64", lambda t: torch.sqrt(
+                                 t.double()).float()))}
+    say(f"window z-normalization of {w.shape[0]} windows on the card == "
+        f"the host's znorm_windows bitwise; square roots of {1 << 20} f32 "
+        f"values differing between the card and the CPU: f32 sqrt "
+        f"{roots['f32']}, f64 sqrt rounded to f32 {roots['f64']}")
+    reg = MetricsRegistry()
+    eng = SubseqEngine(view, batch_size=BATCH, verify="device", mesh=mesh,
+                       pairwise=make_pairwise(view.encoder), metrics=reg)
+    view.reset_counters()
+    for k, excl in SUB_CALLS["ssax"]:
+        hob0 = eng._sweep.host_order_bytes
+        before = launch_counts()
+        t0 = time.perf_counter()
+        res = eng.topk(zQ, k=k, exclusion=excl, use_index=False, epoch=n_e)
+        wall = time.perf_counter() - t0
+        calls = {n: c - before[n] for n, c in launch_counts().items()}
+        all_calls.append((res, wall, calls))
+        k2_calls.append(calls)
+        p5 = sub["results"]["ssax", k, excl][0]
+        order = sub["orders"][n_e]
+        want = np.stack([greedy_nonoverlap(order[qi], nw, SUB_STRIDE, k,
+                                           excl) if excl else order[qi, :k]
+                         for qi in range(N_QUERIES)])
+        d = sub["dist"][:, :n_e]
+        if not (np.array_equal(res.window_ids, want) and np.array_equal(
+                res.distances, np.take_along_axis(d, want, 1).astype(
+                    np.float64))):
+            fail(f"device path windows k={k} exclusion={excl}: differs "
+                 f"from the K1 brute force")
+        if not (np.array_equal(res.window_ids, p5.window_ids)
+                and np.array_equal(res.distances, p5.distances)
+                and res.rounds == p5.rounds
+                and np.array_equal(res.raw_accesses, p5.raw_accesses)):
+            fail(f"device path windows k={k} exclusion={excl}: answer, "
+                 f"rounds or windows verified differ from phase 5's")
+        hob = eng._sweep.host_order_bytes - hob0
+        if not excl and hob:
+            fail(f"device path windows k={k}: {hob} bytes of candidate "
+                 f"order on the host")
+        say(f"device path ssax {n_e} windows k={k}"
+            + (f" exclusion={excl}" if excl else "")
+            + f": == phase 5 == K1 brute force bitwise; rounds {res.rounds}"
+            f" (phase 5: {p5.rounds}), windows/query "
+            f"{res.raw_accesses.mean():.1f}, K1 launches {calls['euclid']}; "
+            f"host order bytes {hob}; topk wall {wall:.3f} s; launches "
+            f"{calls}")
+    c = reg.snapshot()["counters"]
+    if c.get("subseq.rows_to_host") != 0 or view.accesses != 0:
+        fail(f"device path windows: rows moved to the host ({c})")
+    say(f"device path windows: subseq.rows_to_host 0, "
+        f"subseq.h2d_bytes {c['subseq.h2d_bytes']:g}, "
+        f"subseq.host_order_bytes {c['subseq.host_order_bytes']:g} (the "
+        f"exclusion call's host matrix); peak device memory of the phase "
+        f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
+    del eng
+    counts = launch_counts()
+    say(f"device path launches: {counts}")
+    rounds_check("device path", all_calls, exact_fetch=False)
+    sweep_check("device path", k2_calls)
+    return counts
+
+
+def ingest_while_serving(np, engine, Q, extra, frozen, row_bytes, call):
+    """Phase 7's ingest: 3 rows of ``extra`` (a tail of 3 at 4 shards),
+    then the other 4,096; each answer equals the frozen answer over the
+    grown corpus (``frozen``, by K1), the appended rows are their own
+    nearest neighbours, an epoch pinned before the second ingest answers
+    as then, and each ingest uploads only its head-aligned rows."""
+    sweep, k = engine.sweep, max(KS)
+    answers, pins = [], []
+    for lo, hi in ((0, 3), (3, 4099)):
+        h0, t0_tail = sweep.h2d_bytes, sweep.tail_h2d_bytes
+        t0 = time.perf_counter()
+        ids = engine.ingest(extra[lo:hi])
+        t_ing = time.perf_counter() - t0
+        pins.append(engine.store.current_epoch())
+        res, wall, _ = call(engine, Q, k=k)
+        found, _, _ = call(engine, extra[[lo, hi - 1]], k=1)
+        n = engine.store.n
+        head_rows = (n // DEV_SHARDS) * DEV_SHARDS - \
+            ((N_MAIN + lo) // DEV_SHARDS) * DEV_SHARDS
+        h2d = sweep.h2d_bytes - h0
+        want_i, want_d = frozen[len(answers)]
+        if not (np.array_equal(res.indices, want_i)
+                and np.array_equal(res.distances, want_d)):
+            fail(f"ingest of {hi - lo} rows: the answer differs from the "
+                 f"K1 brute force over the {n} rows")
+        if list(found.indices[:, 0]) != [ids[0], ids[-1]]:
+            fail(f"ingest of {hi - lo} rows: appended rows {ids[0]}, "
+                 f"{ids[-1]} found as {list(found.indices[:, 0])}")
+        if h2d != head_rows * row_bytes:
+            fail(f"ingest of {hi - lo} rows: {h2d} bytes uploaded, not the "
+                 f"{head_rows * row_bytes} of its {head_rows} head-aligned "
+                 f"rows")
+        answers.append(res)
+        say(f"ingest {hi - lo} rows -> {n} (head {n // DEV_SHARDS * DEV_SHARDS}"
+            f", tail {n % DEV_SHARDS}): ingest {t_ing:.3f} s; h2d "
+            f"{h2d} bytes = {head_rows} head-aligned rows x {row_bytes} "
+            f"bytes, tail staged {sweep.tail_h2d_bytes - t0_tail} bytes; "
+            f"k={k} == K1 brute force over {n} rows bitwise, topk wall "
+            f"{wall:.3f} s; appended rows found as their own neighbours")
+    pinned, _, _ = call(engine, Q, k=k, epoch=pins[0])
+    if not same_answer(np, pinned, answers[0]):
+        fail("an epoch pinned before the second ingest answers differently")
+    say(f"epoch pinned at {pins[0].n_rows} rows after the second ingest == "
+        f"the answer then, bitwise")
 
 
 def rounds_check(path: str, calls, exact_fetch: bool):
@@ -1353,7 +1699,6 @@ def main():
 
     t0 = time.perf_counter()
     idx_counts = index_path(torch, np, dev, main)
-    del main
     say(f"phase 4: index path exact ({time.perf_counter() - t0:.1f} s)")
 
     t0 = time.perf_counter()
@@ -1363,14 +1708,20 @@ def main():
 
     t0 = time.perf_counter()
     win_counts = window_index_path(torch, np, dev, sub)
-    del sub
     say(f"phase 6: window index path exact "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    t0 = time.perf_counter()
+    dev_counts = device_path(torch, np, dev, main, sub)
+    del main, sub
+    say(f"phase 7: device-resident path exact "
         f"({time.perf_counter() - t0:.1f} s)")
 
     paths = (("main", counts, MAIN_KERNELS),
              ("index", idx_counts, MAIN_KERNELS),
              ("subsequence", sub_counts, tuple(sub_counts)),
-             ("window index", win_counts, MAIN_KERNELS))
+             ("window index", win_counts, MAIN_KERNELS),
+             ("device-resident", dev_counts, MAIN_KERNELS))
     for path, c, names in paths:
         missing = [n for n in names if c[n] <= 0]
         if missing:
@@ -1386,7 +1737,7 @@ def main():
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": r["library_ms"]})
-    say(f"phase 7: every kernel launched on its paths; total "
+    say(f"phase 8: every kernel launched on its paths; total "
         f"{time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
 

@@ -461,8 +461,10 @@ class MatchEngine:
                 CPU), "kernel" / "host" (always K1 on ``device``; "host"
                 is the host-side twin of the device-resident route),
                 "numpy" (bit-identical to a host brute-force scan), or
-                "device" (device-resident verification; requires
-                ``dist_factory``).
+                "device" (device-resident verification: raw rows never
+                move to the host; requires ``dist_factory``, wired by
+                ``core.distributed.make_engine_service``; bitwise equal
+                to "host").
     pairwise:   representation sweep ``(rq, rx) -> (Q, N)``; defaults to
                 the encoder's plain ``pairwise_distance``.
                 ``kernels.ops.make_pairwise`` gives the K2/K3 sweep.
@@ -473,7 +475,11 @@ class MatchEngine:
     cand_fn:    override for approximate candidates
                 (queries_raw, k -> (Q, k) indices).
     stream_factory: override producing a device-ordered candidate
-                stream for exact top-k (queries_raw -> stream).
+                stream for exact top-k (queries_raw ->
+                ``core.distributed.DeviceOrderedStream``); the linear
+                sweep and the index source then feed ``topk_verify``
+                through it, and the (Q, N) bound matrix never reaches
+                the host.  Wired by ``make_engine_service``.
     device:     where encode, sweep and kernel verification run.  The
                 default is the CUDA card, and construction raises when
                 there is none; pass ``device="cpu"`` to run on the CPU.
@@ -506,7 +512,8 @@ class MatchEngine:
         if self.device_verify and dist_factory is None:
             raise ValueError(
                 'verify="device" needs a dist_factory (device-resident '
-                "verification is not ported yet)")
+                "sharded verification; build the engine through "
+                "core.distributed.make_engine_service)")
         self._dist_factory = dist_factory
         # the device path's host twin is the kernel verifier: same f32
         # distance definition, so "device" and "host" are bit-identical
@@ -628,6 +635,7 @@ class MatchEngine:
             total = min(total, n_e)
         observing = trace is not None or self.metrics is not None
         t0 = time.perf_counter() if observing else 0.0
+        sweep = getattr(self, "sweep", None)
         if trace is not None:
             approx_src = bool(getattr(source, "is_approx", False))
             src_name = ("index" if source == "index" else
@@ -640,6 +648,8 @@ class MatchEngine:
                               source=src_name, verify=self.verify_mode)
             if n_e is not None:
                 trace.meta["epoch_rows"] = int(n_e)
+        hob0 = sweep.host_order_bytes if sweep is not None else 0
+        h2d0 = sweep.h2d_bytes if sweep is not None else 0
         dfn = self._make_dist_fn(qs)
         if exact:
             from repro_torch.index.candidates import (
@@ -681,8 +691,8 @@ class MatchEngine:
                     merge=self.merge, dist_fn=dfn, trace=trace,
                     trace_phase="approx")
         if observing:
-            self._observe(trace, res, total, qs.shape[0],
-                          time.perf_counter() - t0)
+            self._observe(trace, res, sweep, total, qs.shape[0],
+                          time.perf_counter() - t0, hob0, h2d0)
         if trace is not None:
             res.trace = trace
         return res
@@ -713,12 +723,15 @@ class MatchEngine:
         return self.topk(queries_raw, k=k, source=src, trace=trace,
                          explain=explain, epoch=epoch)
 
-    def _observe(self, trace, res: TopKResult, total: int, q_n: int,
-                 wall_s: float) -> None:
-        """Post-call recording: pruning power, deduplicated generated
-        counts and registry metrics.  Runs only when a trace or a
-        registry is attached and only after the result exists.  The
-        metric names are the JAX package's."""
+    def _observe(self, trace, res: TopKResult, sweep, total: int, q_n: int,
+                 wall_s: float, hob0: int, h2d0: int) -> None:
+        """Post-call recording: transfer deltas of a sharded sweep,
+        pruning power, deduplicated generated counts and registry
+        metrics.  Runs only when a trace or a registry is attached and
+        only after the result exists.  The metric names are the JAX
+        package's."""
+        hob = (sweep.host_order_bytes - hob0) if sweep is not None else None
+        h2d = (sweep.h2d_bytes - h2d0) if sweep is not None else None
         # the device path never fetches the store; any store accesses
         # during a device-verified call are rows moved to the host
         rth = int(res.store_accesses) if self.device_verify else None
@@ -728,6 +741,9 @@ class MatchEngine:
             gu = trace.unique_counts("generated", q_n)
             if gu is not None:
                 trace.set("generated_unique", gu)
+            if sweep is not None:
+                trace.set("host_order_bytes", int(hob))
+                trace.set("h2d_bytes", int(h2d))
             if rth is not None:
                 trace.set("rows_to_host", rth)
         if self.metrics is not None:
@@ -741,6 +757,9 @@ class MatchEngine:
             m.gauge("match.pruning_power").set(
                 float(res.pruned_fraction.mean()))
             m.histogram("match.topk_latency_s").observe(wall_s)
+            if hob is not None:
+                m.counter("match.host_order_bytes").inc(int(hob))
+                m.counter("match.h2d_bytes").inc(int(h2d))
             if rth is not None:
                 m.counter("match.rows_to_host").inc(rth)
 

@@ -111,9 +111,9 @@ class TreeCandidates:
     outside that frontier is dominated by >= k verified better ids and
     can never re-enter the top-k.
 
-    ``device_order=True`` (sorting the compact union bounds on the
-    device and streaming ids to the scan) needs the device-ordered
-    stream of ``core/distributed.py`` and raises until it is ported.
+    ``device_order=True`` sorts the compact union bounds on ``device``
+    (``core.distributed.host_order_stream``: f64 bounds rounded down to
+    f32) and streams ids to the scan instead of a host bound matrix.
 
     ``approx_collect=C`` is the APPROXIMATE mode (the planner's anytime
     tier): the seed walk still runs exactly, but the collect phase keeps
@@ -131,13 +131,10 @@ class TreeCandidates:
                  prior_d=None, prior_i=None, seen=None,
                  device_order: bool = False,
                  approx_collect: Optional[int] = None,
-                 epoch=None):
-        if device_order:
-            raise NotImplementedError(
-                "device_order=True needs the device-ordered candidate "
-                "stream of core/distributed.py, which is not ported yet "
-                "(ROADMAP queue 1 item 8)")
+                 epoch=None, device="cuda"):
         self.tree = tree
+        self._device_order = bool(device_order)
+        self._device = device
         self._query_features = query_features
         # as-of frontier: only items with id < epoch are generated (a
         # ``CorpusEpoch`` or plain row count; None = live).  Inserts
@@ -259,6 +256,13 @@ class TreeCandidates:
         bounds = np.full((q_n, union.size), np.inf, np.float64)
         for r in range(q_n):
             bounds[r, np.searchsorted(union, all_ids[r])] = all_lbs[r]
+        if self._device_order and union.size:
+            from repro_torch.core.distributed import host_order_stream
+            return CandidateSet(bounds=None, col_ids=None,
+                                stream=host_order_stream(bounds, union,
+                                                         self._device),
+                                init_d=merged_d, init_i=merged_i,
+                                seed_res=seed_res, approx_dropped=dropped)
         return CandidateSet(bounds=bounds, col_ids=union,
                             init_d=merged_d,
                             init_i=merged_i, seed_res=seed_res,

@@ -124,7 +124,11 @@ class FeatureAdapter:
         return self.encoder
 
     def _rows(self, rows) -> torch.Tensor:
+        """Rows as f32 on the adapter's device; a tensor stays on its own
+        device (the sharded path hands in the mesh's)."""
         self._require_encoder()
+        if isinstance(rows, torch.Tensor):
+            return rows.to(torch.float32)
         x = torch.as_tensor(np.asarray(rows, np.float32))
         return x.to(resolve_device(self.device))
 
@@ -135,10 +139,13 @@ class FeatureAdapter:
         return self._assemble(self._device_features(rows))
 
     def features_sharded(self, rows, mesh) -> np.ndarray:
-        """``features`` sharded row-wise across a device mesh."""
-        raise NotImplementedError(
-            "features_sharded needs core/distributed.py, which is not "
-            "ported yet (ROADMAP queue 1 item 8)")
+        """``features`` with the device map run shard by shard on the
+        mesh's device (``core.distributed.rowwise_sharded``).  Bitwise
+        the unsharded path: the per-row map cannot depend on the shard a
+        row lands in, and assembly stays on the host."""
+        from repro_torch.core.distributed import rowwise_sharded
+        return self._assemble(
+            rowwise_sharded(self, "_device_features", rows, mesh))
 
     def _device_features(self, rows):
         """Pure row-wise map on ``device``: (N, T) raw rows -> feature

@@ -73,11 +73,13 @@ class SeriesIndex:
         ``insert_rows`` over the existing rows, the same code path
         appends keep using.
 
-        ``n_shards`` partitions the tree routing by root subtree
-        (``SplitTree.insert_grouped``), bit-identical to the single
-        build — leaf membership, boxes and split history included.
-        ``mesh`` (sharded feature extraction) raises until
-        ``core/distributed.py`` is ported."""
+        ``mesh`` (a ``core.distributed.ShardMesh``) computes the
+        features shard by shard on its device
+        (``FeatureAdapter.features_sharded``); ``n_shards`` (default: the
+        mesh's shard count) partitions the tree routing by root subtree
+        (``SplitTree.insert_grouped``).  Both are bit-identical to the
+        single build — leaf membership, boxes and split history
+        included."""
         idx = cls(store.encoder, leaf_fill=leaf_fill, max_bits=max_bits,
                   device=getattr(store, "device", "cuda"))
         if mesh is None and (n_shards is None or n_shards <= 1):
@@ -88,20 +90,19 @@ class SeriesIndex:
 
     def bulk_load(self, rows, *, mesh=None, n_shards: int = None
                   ) -> np.ndarray:
-        """Grouped bulk build: tree routing partitioned into
-        ``n_shards`` root subtrees.  Features are computed in chunks
-        like ``insert_rows`` (row-wise maps make chunking bit-identical)
-        and routed in one ``insert_grouped``; returns the new ids in
-        insertion order.  ``mesh`` raises (ROADMAP queue 1 item 8)."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "a mesh-sharded index build needs core/distributed.py, "
-                "which is not ported yet (ROADMAP queue 1 item 8)")
+        """Grouped bulk build: features across ``mesh``'s shards (or on
+        the index's device without one), tree routing partitioned into
+        ``n_shards`` root subtrees (default: the mesh's shard count).
+        Features are computed in chunks like ``insert_rows`` (row-wise
+        maps make chunking bit-identical) and routed in one
+        ``insert_grouped``; returns the new ids in insertion order."""
+        if n_shards is None:
+            n_shards = 1 if mesh is None else mesh.n_shards
         rows = _as_rows(rows)
         if rows.shape[0] == 0:
             return np.empty(0, np.int64)
         return self.tree.insert_grouped(self._stacked_features(
-            _row_chunks(rows)), max(n_shards or 1, 1))
+            _row_chunks(rows), mesh), max(n_shards, 1))
 
     def insert_rows(self, rows) -> np.ndarray:
         """Compute features of new rows (chunked — features are row-wise
@@ -117,8 +118,10 @@ class SeriesIndex:
         in insertion order."""
         return self.tree.insert(self._stacked_features(chunks))
 
-    def _stacked_features(self, chunks) -> np.ndarray:
-        feats = [self.adapter.features(c) for c in chunks]
+    def _stacked_features(self, chunks, mesh=None) -> np.ndarray:
+        feats = [self.adapter.features(c) if mesh is None
+                 else self.adapter.features_sharded(c, mesh)
+                 for c in chunks]
         if not feats:
             return np.empty((0, self.adapter.D), np.float32)
         return feats[0] if len(feats) == 1 else np.concatenate(feats)
@@ -158,7 +161,8 @@ class SeriesIndex:
         ``prior_d`` / ``prior_i`` / ``seen`` enable frontier reuse across
         exclusion-widening rounds (see ``TreeCandidates``): already
         verified ids are seeded, never verified twice.  ``device_order``
-        raises until the device-ordered stream is ported.  ``approx_collect``
+        sorts the compact union bounds on the index's device and streams
+        ids to the scan.  ``approx_collect``
         switches to the APPROXIMATE anytime mode: exact seed walk, then
         at most that many collected survivors per query, with the
         dropped bounds carried as the result's error certificate.
@@ -168,7 +172,8 @@ class SeriesIndex:
         return TreeCandidates(self.tree, self.query_features,
                               prior_d=prior_d, prior_i=prior_i, seen=seen,
                               device_order=device_order,
-                              approx_collect=approx_collect, epoch=epoch)
+                              approx_collect=approx_collect, epoch=epoch,
+                              device=self.device)
 
     def topk(self, queries_raw, store, *, k: int = 1, batch_size: int = 64,
              verifier=None, merge=None, dist_fn=None, on_verified=None,

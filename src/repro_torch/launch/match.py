@@ -1,18 +1,23 @@
 """Matching launcher: encode a synthetic season corpus with SAX, sSAX,
 tSAX or stSAX and serve batched exact and approximate top-k through the
-port's ``MatchEngine``, checked against a brute force.
+port's sharded engine service (``core.distributed.make_engine_service``
+over ``make_mesh(1)``), checked against a brute force.
 
     PYTHONPATH=src python -m repro_torch.launch.match \
         --n 40000 --strength 0.7 --technique ssax --queries 8 --k 32
 
 Runs on the CUDA card by default (``--device cuda``): the encode goes
-through the K4 PAA kernel, the SAX / sSAX sweep through the K3 / K2
-kernels (``kernels.ops.make_pairwise`` on the engine's ``pairwise=``
-hook), and verification through the K1 euclid kernel
-(``--verify auto``).  ``--device cpu`` runs every kernel's plain version
-instead; without a card the default raises rather than falling back.
-The brute force each exact answer is checked against is K1 over the
-whole corpus, so the engine's exact top-k must equal it bitwise.
+through the K4 PAA kernel, the SAX / sSAX sweep over the round-robin
+device mirrors through the K3 / K2 kernels (``kernels.ops.make_pairwise``
+on the ``pairwise=`` hook), the candidate order is sorted on the card,
+and verification goes through the K1 euclid kernel (``--verify auto``).
+``--verify device`` mirrors the raw rows on the card too and verifies
+there, moving no raw row to the host; ``--verify host`` is its bitwise
+twin (store fetch, then K1).  Both apply to ``--subseq``.
+``--device cpu`` runs every kernel's plain version instead; without a
+card the default raises rather than falling back.  The brute force each
+exact answer is checked against is K1 over the whole corpus, so the
+engine's exact top-k must equal it bitwise.
 
 The corpus lives in a ``SymbolicStore``.  ``--index`` builds its
 split-tree index and serves indexed exact top-k beside the linear sweep
@@ -61,28 +66,35 @@ def make_engine(technique: str, D: np.ndarray, *, L: int = 10,
                 strength: float = 0.7, batch: int = 256,
                 store: str = "ssd", verify: str = "auto", rep=None,
                 metrics=None, device="cuda"):
-    """A ``MatchEngine`` over a ``SymbolicStore`` holding ``D`` (encoded
-    on ``device`` unless ``rep``, the representation of ``D``, is given)
-    with the launcher's encoder and the kernel sweep for SAX / sSAX.  The
-    engine can ``append``, and its store can build an index and be
-    saved."""
-    from repro_torch.core.engine import MatchEngine
+    """The sharded engine service (``core.distributed.
+    make_engine_service`` over ``make_mesh(1, device)``) on a
+    ``SymbolicStore`` holding ``D`` — encoded shard by shard unless
+    ``rep``, the representation of ``D``, is given — with the launcher's
+    encoder and the kernel sweep for SAX / sSAX.  Exact top-k orders its
+    candidates on the device; the engine can ``ingest`` / ``append``,
+    and its store can build an index and be saved."""
+    from repro_torch.core.distributed import make_engine_service, make_mesh
     from repro_torch.kernels.ops import make_pairwise
     from repro_torch.store import SymbolicStore
     tech = launcher_technique(technique, D.shape[1], L, strength)
-    sym = SymbolicStore(tech, media=store, device=device)
-    sym.append(D, rep=rep)
-    return MatchEngine(tech, sym, batch_size=batch, verify=verify,
-                       pairwise=make_pairwise(tech), metrics=metrics,
-                       device=device)
+    mesh = make_mesh(1, device)
+    sym = SymbolicStore(tech, media=store, device=mesh.device)
+    if rep is not None:
+        sym.append(D, rep=rep)
+    return make_engine_service(tech, None if rep is not None else D, mesh,
+                               store=sym, batch_size=batch, verify=verify,
+                               pairwise=make_pairwise(tech),
+                               metrics=metrics)
 
 
-def _explain(trace):
+def _explain(trace, *, device: bool = False):
     """Print the per-query plan and fail on a broken trace (a missing
-    required span, no verification round)."""
+    required span, no verification round).  ``device=True`` also holds
+    the device route's transfer invariants: ``host_order_bytes == 0``
+    (the order stayed on the device) and ``rows_to_host == 0``."""
     from repro_torch.obs import check_trace, render_trace
     print(render_trace(trace))
-    problems = check_trace(trace)
+    problems = check_trace(trace, device=device)
     if problems:
         raise SystemExit("[explain] trace check FAILED: "
                          + "; ".join(problems))
@@ -182,10 +194,13 @@ def subseq_queries(D: np.ndarray, m: int, n_queries: int,
 def make_subseq_engine(technique: str, D: np.ndarray, *, m: int,
                        stride: int, L: int = 10, strength: float = 0.7,
                        batch: int = 256, store: str = "ssd",
-                       verify: str = "auto", metrics=None, device="cuda"):
+                       verify: str = "auto", metrics=None, mesh=None,
+                       device="cuda"):
     """A ``WindowView`` of ``D`` (window ``m``, W = m / L) and a
     ``SubseqEngine`` over it with the kernel sweep for SAX / sSAX,
-    recording into ``metrics`` when one is given."""
+    recording into ``metrics`` when one is given; ``mesh`` (a
+    ``core.distributed.ShardMesh``) shards the window sweep and is
+    needed for ``verify="device"``."""
     from repro_torch.core.techniques import make_technique
     from repro_torch.kernels.ops import make_pairwise
     from repro_torch.subseq import SubseqEngine, WindowView
@@ -193,7 +208,8 @@ def make_subseq_engine(technique: str, D: np.ndarray, *, m: int,
                           r2_season=strength)
     view = WindowView(tech, D, stride=stride, media=store, device=device)
     return view, SubseqEngine(view, batch_size=batch, verify=verify,
-                              pairwise=make_pairwise(tech), metrics=metrics)
+                              pairwise=make_pairwise(tech), metrics=metrics,
+                              mesh=mesh)
 
 
 def run_subseq(args, device):
@@ -209,6 +225,14 @@ def run_subseq(args, device):
         raise SystemExit(f"--window {m} must be a multiple of --L {args.L}")
     if m > args.T:
         raise SystemExit(f"--window {m} longer than --T {args.T}")
+    mesh = None
+    if args.verify == "device":
+        from repro_torch.core.distributed import make_mesh
+        mesh = make_mesh(1, device)
+        print(f"[subseq] device-resident verification on {device}")
+    # the device route's transfer invariants hold where the order stays
+    # on the device: suppression masks a host bound matrix
+    gate = args.verify == "device" and args.exclusion <= 0
     rng = np.random.default_rng(7)
     D = season_dataset(args.n, args.T, args.L, args.strength,
                        per_series_strength=True, seed=7)
@@ -218,7 +242,7 @@ def run_subseq(args, device):
     view, engine = make_subseq_engine(
         args.technique, D, m=m, stride=s, L=args.L, strength=args.strength,
         batch=args.batch, store=args.store, verify=args.verify,
-        metrics=REGISTRY, device=device)
+        metrics=REGISTRY, mesh=mesh, device=device)
     print(f"[subseq] {args.technique} over {args.n} x {args.T} "
           f"-> {view.n} windows (m={m}, stride={s}) on {device}; "
           f"encode {time.perf_counter() - t0:.2f}s")
@@ -236,7 +260,7 @@ def run_subseq(args, device):
                       explain=args.explain)
     dt = time.perf_counter() - t0
     if args.explain:
-        _explain(res.trace)
+        _explain(res.trace, device=gate)
     t0 = time.perf_counter()
     scan = engine.scan_topk(Q, k=args.k)
     dt_scan = time.perf_counter() - t0
@@ -272,7 +296,7 @@ def run_subseq(args, device):
         lin = engine.topk(Q, k=args.k, exclusion=args.exclusion,
                           use_index=False, explain=args.explain)
         if args.explain:
-            _explain(lin.trace)
+            _explain(lin.trace, device=gate)
         agree = (np.array_equal(res.window_ids, lin.window_ids)
                  and np.array_equal(res.distances, lin.distances))
         print(f"[subseq] index vs linear sweep: bitwise identical "
@@ -310,10 +334,13 @@ def main(argv=None):
                     help="verification batch per query per round")
     ap.add_argument("--store", default="ssd", choices=["hdd", "ssd", "hbm"])
     ap.add_argument("--verify", default="auto",
-                    choices=["auto", "numpy", "kernel", "host"],
+                    choices=["auto", "numpy", "kernel", "host", "device"],
                     help="raw verification path: 'auto' is the K1 kernel "
                     "on a card and numpy on the CPU; 'kernel' and 'host' "
-                    "always verify through K1")
+                    "always verify through K1; 'device' mirrors the raw "
+                    "rows on the device and verifies there through K1, "
+                    "moving no raw row to the host (bitwise equal to "
+                    "'host')")
     ap.add_argument("--device", default="cuda",
                     help="where encode, sweep and verification run")
     ap.add_argument("--subseq", action="store_true",
@@ -393,7 +420,7 @@ def main(argv=None):
         res = engine.topk(Q, k=k, explain=args.explain)
         dt = time.perf_counter() - t0
         if args.explain:
-            _explain(res.trace)
+            _explain(res.trace, device=args.verify == "device")
         hits = sum(int(np.array_equal(res.indices[qi], true_i[qi, :k]))
                    for qi in range(args.queries))
         acc = res.raw_accesses.mean()
@@ -418,7 +445,7 @@ def main(argv=None):
                               explain=args.explain)
         dt = time.perf_counter() - t0
         if args.explain:
-            _explain(res_idx.trace)
+            _explain(res_idx.trace, device=args.verify == "device")
         agree = (np.array_equal(res_idx.indices, res_lin.indices)
                  and np.array_equal(res_idx.distances, res_lin.distances))
         print(f"[match] index: {store.index.n_nodes} nodes over "
@@ -429,13 +456,13 @@ def main(argv=None):
               f"{lin_acc:.0f} (linear) of {args.n}; {res_idx.rounds} "
               f"rounds; wall {dt:.2f}s")
 
-    # approximate top-k from the representation frontier
+    # approximate top-k from the sweep's candidate frontier
     store.reset()
     t0 = time.perf_counter()
     res = engine.topk(Q, k=args.k, exact=False, explain=args.explain)
     dt = time.perf_counter() - t0
     if args.explain:
-        _explain(res.trace)
+        _explain(res.trace, device=args.verify == "device")
     hit1 = sum(int(res.indices[qi, 0] == true_i[qi, 0])
                for qi in range(args.queries))
     print(f"[match] approx k={args.k}: 1-NN hit {hit1}/{args.queries}; "
@@ -447,7 +474,7 @@ def main(argv=None):
     for c in range(args.ingest):
         chunk = ingest_pool[c * args.ingest_rows:(c + 1) * args.ingest_rows]
         t0 = time.perf_counter()
-        engine.append(chunk)
+        engine.ingest(chunk)
         t_ing = time.perf_counter() - t0
         t0 = time.perf_counter()
         res = engine.topk(Q, k=args.k, exact=False)

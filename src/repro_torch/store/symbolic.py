@@ -310,9 +310,11 @@ class SymbolicStore:
         the current rows, features on the store's device.  Later
         ``append`` calls maintain it incrementally (no rebuild); the
         engine consumes it via ``MatchEngine.topk(..., source="index")``.
-        ``n_shards`` routes the bulk build through
-        ``SplitTree.insert_grouped`` (bit-identical to the single build);
-        ``mesh`` raises until ``core/distributed.py`` is ported."""
+        ``mesh`` (a ``core.distributed.ShardMesh``) computes the
+        features shard by shard on its device and ``n_shards`` (default:
+        the mesh's shard count) routes the bulk build through
+        ``SplitTree.insert_grouped``; both are bit-identical to the
+        single build."""
         if not self.store_raw:
             raise TypeError("store was built with store_raw=False: index "
                             "features are derived from raw rows (index "

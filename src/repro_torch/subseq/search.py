@@ -47,13 +47,19 @@ same result.
 ``scan_topk`` is the brute-force baseline: the full distance profile
 through the K5 windowed kernel (its plain version for a CPU view).
 
-Not ported yet, each raising ``NotImplementedError``: the sharded sweep
-and device-resident verification (``mesh=``, ``verify="device"``; ROADMAP
-queue 1 item 8).
+Sharded sweep and device verification: with ``mesh=`` (a
+``core.distributed.ShardMesh``) the window sweep runs over round-robin
+device mirrors (``core.distributed.ShardedWindowSweep``) and the exact
+linear path without suppression orders candidates on the device, so the
+(Q, n_windows) bound matrix never reaches the host; ``verify="device"``
+(which needs the mesh) cuts, z-normalizes and verifies the candidate
+windows on the device, moving no source row to the host, bitwise equal
+to ``verify="host"``.
 """
 
 from __future__ import annotations
 
+import functools
 import time
 from dataclasses import dataclass
 from typing import Callable, Optional
@@ -62,7 +68,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.engine import (
-    DeviceRepCache, make_verifier, merge_topk_numpy, topk_verify)
+    DeviceRepCache, make_verifier, merge_topk_device, merge_topk_numpy,
+    topk_verify)
 from repro_torch.kernels import ops
 from repro_torch.obs.trace import maybe_span
 from repro_torch.store.symbolic import epoch_rows
@@ -146,33 +153,48 @@ class SubseqEngine:
                   corpus); the engine runs on the view's device.
     batch_size:   verification batch per query per round.
     verify:       "auto" (K1 on a CUDA device, numpy on the CPU),
-                  "kernel" / "host" (always K1 on the view's device), or
-                  "numpy" (bit-identical to a host brute-force scan).
+                  "kernel" / "host" (always K1 on the view's device),
+                  "numpy" (bit-identical to a host brute-force scan), or
+                  "device" (windows verified on the mesh's device, no
+                  source row moved to the host; requires ``mesh``;
+                  bitwise equal to "host").
     pairwise:     representation sweep ``(rq, rx) -> (Q, N)``; defaults
                   to the encoder's plain ``pairwise_distance``.
                   ``kernels.ops.make_pairwise`` gives the K2/K3 sweep.
     metrics:      optional ``repro_torch.obs.MetricsRegistry`` (None:
                   record nothing); the metric names are the JAX
                   package's ``subseq.*``.
-    mesh:         not ported yet; must be None.
+    mesh:         optional ``core.distributed.ShardMesh``: shards the
+                  window sweep (``ShardedWindowSweep``) like whole-series
+                  matching; required for verify="device".
     """
 
     def __init__(self, view: WindowView, *, batch_size: int = 64,
-                 verify: str = "auto", pairwise: Callable | None = None, mesh=None,
-                 metrics=None):
-        if mesh is not None or verify == "device":
-            raise NotImplementedError(
-                'the sharded window sweep (mesh=, verify="device") is not '
-                "ported yet: ROADMAP queue 1 item 8")
+                 verify: str = "auto", pairwise: Callable | None = None,
+                 mesh=None, metrics=None):
         self.view = view
         self.encoder = view.encoder
         self.device = view.device
         self.batch_size = batch_size
+        self.mesh = mesh
         self.verify_mode = verify
         self.metrics = metrics
-        self.verifier = make_verifier(verify, self.device)
-        self.merge = merge_topk_numpy
+        self._device = verify == "device"
+        if self._device and mesh is None:
+            raise ValueError('verify="device" needs a mesh (the sharded '
+                             "window sweep owns the device raw mirror)")
         self._pw = pairwise or self.encoder.pairwise_distance
+        self._sweep = None
+        if mesh is not None:
+            from repro_torch.core.distributed import ShardedWindowSweep
+            self._sweep = ShardedWindowSweep(view, mesh, pairwise=self._pw,
+                                             mirror_raw=self._device)
+        # the device route's host twin is the K1 verifier: the same f32
+        # distance definition, so the two are bitwise equal
+        self.verifier = make_verifier("kernel" if self._device else verify,
+                                      self.device)
+        self.merge = (functools.partial(merge_topk_device, device=self.device)
+                      if self._device else merge_topk_numpy)
         self._rep_cache = DeviceRepCache(view, self.device)
 
     # -- representation sweep --------------------------------------------
@@ -194,7 +216,10 @@ class SubseqEngine:
 
     def repr_distances(self, queries_z) -> np.ndarray:
         """(Q, n_windows) lower-bounding representation distances for
-        already-normalized queries."""
+        already-normalized queries — over the mesh's mirrors when a mesh
+        was given."""
+        if self._sweep is not None:
+            return self._sweep.repr_distances(queries_z)
         q = torch.as_tensor(np.asarray(queries_z, np.float32))
         q_rep = self.encoder.encode(q.to(self.device))
         return self._pw(q_rep, self.rep).cpu().numpy()
@@ -228,18 +253,35 @@ class SubseqEngine:
             trace = Trace("subseq.topk")
         observing = trace is not None or self.metrics is not None
         t0 = time.perf_counter() if observing else 0.0
+        marks = self._marks() if observing else None
         res = self._topk(queries_raw, k, exclusion, batch_size, use_index,
                          trace, epoch)
         if observing:
-            self._observe(trace, res, k, time.perf_counter() - t0)
+            self._observe(trace, res, k, time.perf_counter() - t0, marks)
         if trace is not None:
             res.trace = trace
         return res
 
-    def _observe(self, trace, res: SubseqResult, k: int,
-                 wall_s: float) -> None:
+    def _marks(self) -> tuple:
+        """(rows read, host-order bytes, h2d bytes) before a call: the
+        monotone counters its transfer deltas are taken from."""
+        sw = self._sweep
+        return (self.view.accesses,
+                sw.host_order_bytes if sw is not None else 0,
+                sw.h2d_bytes if sw is not None else 0)
+
+    def _observe(self, trace, res: SubseqResult, k: int, wall_s: float,
+                 marks: tuple) -> None:
         """Post-call trace / registry recording: reads only the finished
-        result, so it never perturbs it."""
+        result and monotone counters, so it never perturbs the result."""
+        rows0, hob0, h2d0 = marks
+        # the device route never fetches: any row read during a
+        # device-verified call is a row moved to the host
+        rth = int(self.view.accesses - rows0) if self._device else None
+        hob = h2d = None
+        if self._sweep is not None:
+            hob = int(self._sweep.host_order_bytes - hob0)
+            h2d = int(self._sweep.h2d_bytes - h2d0)
         if trace is not None:
             trace.meta.update(engine="subseq", k=int(k),
                               q_n=int(res.window_ids.shape[0]),
@@ -253,6 +295,11 @@ class SubseqEngine:
             gu = trace.unique_counts("generated", res.window_ids.shape[0])
             if gu is not None:
                 trace.set("generated_unique", gu)
+            if hob is not None:
+                trace.set("host_order_bytes", hob)
+                trace.set("h2d_bytes", h2d)
+            if rth is not None:
+                trace.set("rows_to_host", rth)
         if self.metrics is not None:
             m = self.metrics
             m.counter("subseq.queries").inc(res.window_ids.shape[0])
@@ -264,6 +311,11 @@ class SubseqEngine:
             m.gauge("subseq.pruning_power").set(
                 float(res.pruned_fraction.mean()))
             m.histogram("subseq.topk_latency_s").observe(wall_s)
+            if hob is not None:
+                m.counter("subseq.host_order_bytes").inc(hob)
+                m.counter("subseq.h2d_bytes").inc(h2d)
+            if rth is not None:
+                m.counter("subseq.rows_to_host").inc(rth)
 
     def _topk(self, queries_raw, k: int, exclusion: int,
               batch_size: Optional[int], use_index: object,
@@ -280,9 +332,32 @@ class SubseqEngine:
             if n_e is not None:
                 trace.meta["epoch_rows"] = int(n_e)
         acc = {"rows": 0, "fetches": 0, "io": 0.0, "rounds": 0}
+        dfn = self._sweep.make_dist_fn(zq) if self._device else None
         if idx is not None:
-            return self._topk_indexed(zq, idx, k, exclusion, bs, acc,
+            return self._topk_indexed(zq, idx, k, exclusion, bs, acc, dfn,
                                       trace, epoch=n_e)
+        if exclusion <= 0 and self._sweep is not None:
+            # device-ordered candidate stream: the (Q, n_windows) bound
+            # matrix never reaches the host (the suppression loop below
+            # masks host columns, so it keeps the matrix path)
+            with maybe_span(trace, "order") as sp:
+                mask_fn = None
+                if n_e is not None:
+                    # windows past the pinned frontier -> +inf on device
+                    def mask_fn(ids, _n=n_e):
+                        return ids >= _n
+                stream = self._sweep.candidate_stream(zq, mask_fn=mask_fn)
+                if trace is not None:
+                    from repro_torch.obs.trace import block_until_ready
+                    block_until_ready((stream._b, stream._i))
+                    sp.meta["stream"] = True
+            with maybe_span(trace, "verify"):
+                res = topk_verify(zq, None, self.view, k=k, batch_size=bs,
+                                  verifier=self.verifier, merge=self.merge,
+                                  dist_fn=dfn, stream=stream, trace=trace)
+            total = (int(stream.width) if n_e is None
+                     else min(int(stream.width), n_e))
+            return self._wrap(res.indices, res.distances, res, total, acc)
         with maybe_span(trace, "order"):
             rd = self.repr_distances(zq)
             if n_e is not None:
@@ -292,7 +367,7 @@ class SubseqEngine:
             with maybe_span(trace, "verify"):
                 res = topk_verify(zq, rd, self.view, k=k, batch_size=bs,
                                   verifier=self.verifier, merge=self.merge,
-                                  trace=trace)
+                                  dist_fn=dfn, trace=trace)
             return self._wrap(res.indices, res.distances, res, nw, acc)
 
         # widen the verified frontier until k non-overlapping survivors
@@ -312,8 +387,8 @@ class SubseqEngine:
                 res = topk_verify(zq, rd, self.view, k=k_fetch,
                                   batch_size=bs, verifier=self.verifier,
                                   merge=self.merge, init_d=init_d,
-                                  init_i=init_i, on_verified=ver.add,
-                                  trace=trace)
+                                  init_i=init_i, dist_fn=dfn,
+                                  on_verified=ver.add, trace=trace)
             widen_round += 1
             _accumulate(acc, res)
             ids, dists, full = self._suppress(res, k, exclusion)
@@ -347,14 +422,16 @@ class SubseqEngine:
             trace = Trace("subseq.topk")
         observing = trace is not None or self.metrics is not None
         t0 = time.perf_counter() if observing else 0.0
+        marks = self._marks() if observing else None
         zq = self.normalize_queries(queries_raw)
         if trace is not None:
             trace.set("source", "index-approx")
             trace.set("exact", False)
+        dfn = self._sweep.make_dist_fn(zq) if self._device else None
         res = idx.topk(zq, self.view, k=k,
                        batch_size=batch_size or self.batch_size,
                        verifier=self.verifier, merge=self.merge,
-                       trace=trace, epoch=n_e,
+                       dist_fn=dfn, trace=trace, epoch=n_e,
                        approx_collect=(collect if collect is not None
                                        else max(4 * k, 32)))
         total = self.view.n if n_e is None else min(self.view.n, n_e)
@@ -363,7 +440,7 @@ class SubseqEngine:
         out.kth_lb = res.kth_lb
         out.error_bar = res.error_bar
         if observing:
-            self._observe(trace, out, k, time.perf_counter() - t0)
+            self._observe(trace, out, k, time.perf_counter() - t0, marks)
         if trace is not None:
             out.trace = trace
         return out
@@ -382,7 +459,7 @@ class SubseqEngine:
                              f"epoch pins {epoch}; call view.sync()")
 
     def _topk_indexed(self, zq, idx, k: int, exclusion: int, bs: int,
-                      acc: dict, trace=None,
+                      acc: dict, dfn=None, trace=None,
                       epoch: Optional[int] = None) -> SubseqResult:
         """Indexed candidate generation: route the tree's compact
         candidate set through the same verification scan
@@ -396,7 +473,8 @@ class SubseqEngine:
         self._check_cover(idx, epoch)
         nw_total = self.view.n if epoch is None else int(epoch)
         common = dict(batch_size=bs, verifier=self.verifier,
-                      merge=self.merge, epoch=epoch, trace=trace)
+                      merge=self.merge, dist_fn=dfn, epoch=epoch,
+                      trace=trace)
         if exclusion <= 0:
             res = idx.topk(zq, self.view, k=k, **common)
             return self._wrap(res.indices, res.distances, res, nw_total,

@@ -283,14 +283,18 @@ def test_engine_rejects_unported_paths(corpora):
     eng = MatchEngine(enc, RawStore.ssd(D), device="cpu")
     with pytest.raises(ValueError):
         eng.topk(Q, k=1, source="index")
-    # a device-ordered index source needs core/distributed.py (item 8)
+    # with a stream factory the index source is device-ordered
+    # (core/distributed.py, ported): bitwise the host-ordered answer
     from repro_torch.store import SymbolicStore
     store = SymbolicStore.from_rows(enc, D[:40], device="cpu")
     store.build_index(leaf_fill=16)
     streamed = MatchEngine(enc, store, stream_factory=lambda q: None,
                            device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        streamed.topk(Q, k=1, source="index")
+    got = streamed.topk(Q, k=1, source="index")
+    want = MatchEngine(enc, store, device="cpu").topk(Q, k=1,
+                                                       source="index")
+    np.testing.assert_array_equal(got.indices, want.indices)
+    np.testing.assert_array_equal(got.distances, want.distances)
 
 
 def test_launcher_dryrun_on_cpu(capsys):

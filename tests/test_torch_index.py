@@ -424,24 +424,48 @@ def test_topk_approx_without_index_falls_back(season):
 
 
 def test_tree_candidates_rejects_bad_collect_and_device_order(season):
-    _, D = season
+    """Bad arguments raise; ``device_order=True`` (ported with
+    ``core/distributed.py``) streams the union bounds from the device and
+    answers bitwise as the host-ordered source does."""
+    Q, D = season
     store = _store("ssax", D[:48])
     with pytest.raises(ValueError):
         store.index.source(approx_collect=-1)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        store.index.source(device_order=True)
     with pytest.raises(ValueError):
         TreeCandidates(store.index.tree, store.index.query_features,
                        prior_d=np.zeros((1, 1)))
+    src = store.index.source(device_order=True)
+    cs = src.candidate_bounds(Q, 4, lambda c: _engine(store)
+                              .verify_candidates(Q, c, k=4))
+    assert cs.bounds is None and cs.stream is not None
+    from repro_torch.index.candidates import topk_from_source
+    got = topk_from_source(Q, src, store, k=4, total=store.n)
+    want = store.index.topk(Q, store, k=4)
+    np.testing.assert_array_equal(got.indices, want.indices)
+    np.testing.assert_array_equal(got.distances, want.distances)
+    assert got.rounds == want.rounds
 
 
 def test_sharded_paths_name_their_item(season):
+    """The sharded paths (ROADMAP item 8) now run and equal their
+    unsharded counterparts bitwise; what is still unported keeps naming
+    its item (the FFT profile, item 9)."""
     _, D = season
+    from repro_torch.core.distributed import make_mesh
+    from repro_torch.kernels import ops
+    mesh = make_mesh(2, device="cpu")
+    host = SymbolicStore.from_rows(_enc("ssax"), D[:16], device="cpu")
+    host.build_index()
     store = SymbolicStore.from_rows(_enc("ssax"), D[:16], device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        store.build_index(mesh=object())
-    with pytest.raises(NotImplementedError, match="item 8"):
-        adapter_for(_enc("ssax"), "cpu").features_sharded(D[:4], object())
+    store.build_index(mesh=mesh)
+    (ma, xa), (mb, xb) = host.index.to_snapshot(), store.index.to_snapshot()
+    assert ma == mb and all(np.array_equal(xa[k], xb[k]) for k in xa)
+    adapter = adapter_for(_enc("ssax"), "cpu")
+    np.testing.assert_array_equal(adapter.features_sharded(D[:5], mesh),
+                                  adapter.features(D[:5]))
+    with pytest.raises(NotImplementedError, match="item 9"):
+        ops.windowed_euclid(torch.zeros(2, 8), torch.zeros(4),
+                            method="fft")
 
 
 def test_build_index_rejects_rep_only_store():

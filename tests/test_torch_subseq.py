@@ -336,12 +336,23 @@ def test_scan_topk_agrees_with_engine(corpus):
 
 
 def test_unported_paths_raise(corpus):
+    """The sharded window sweep (``mesh=``, ``verify="device"``, ROADMAP
+    item 8) is ported: it answers bitwise as the unsharded engine, and
+    device verification without a mesh, or a query of the wrong length,
+    still raises."""
     X, Q = corpus
-    eng = _engine(X, "sax", 7)
-    assert eng.topk(Q, k=1, use_index=False).window_ids.shape == (3, 1)
-    for kw in ({"mesh": object()}, {"verify": "device"}):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            SubseqEngine(eng.view, **kw)
+    from repro_torch.core.distributed import make_mesh
+    eng = _engine(X, "sax", 7, verify="host")
+    want = eng.topk(Q, k=1, use_index=False)
+    assert want.window_ids.shape == (3, 1)
+    mesh = make_mesh(2, device="cpu")
+    for kw in ({"mesh": mesh}, {"mesh": mesh, "verify": "device"}):
+        got = SubseqEngine(eng.view, **{"verify": "host", **kw}).topk(
+            Q, k=1)
+        np.testing.assert_array_equal(got.window_ids, want.window_ids)
+        np.testing.assert_array_equal(got.distances, want.distances)
+    with pytest.raises(ValueError, match="mesh"):
+        SubseqEngine(eng.view, verify="device")
     with pytest.raises(ValueError):
         eng.topk(np.zeros((1, M + 1), np.float32))
 
