@@ -5,6 +5,7 @@
     python3 chip_smoke.py --k5     # build, then time K5 alone
     python3 chip_smoke.py --k2     # build, then time K2 alone (Q = 1..64)
     python3 chip_smoke.py --split  # build, then the main path's topk split
+    python3 chip_smoke.py --serve  # build, then phase 8 alone
 
 Phases, each failing loudly with a nonzero exit:
 
@@ -100,9 +101,37 @@ Phases, each failing loudly with a nonzero exit:
    phase 5's rows), bitwise phase 5's answers and rounds, with no
    window row moved to the host and the card's window z-normalization
    equal to the host's bitwise.  Peak device memory printed.
-8. Print each path's launch counts (each kernel of a path > 0) and the
-   ``{"kernels": [...]}`` line with the launches of all five paths.
-9. Print the card's name and power limit, then the result line.
+8. Drive the serving path: (a) ``service.MatchSession`` over phase 4's
+   indexed 1M sSAX store through ``make_engine_service`` on
+   ``make_mesh(4)`` with ``verify="device"``, two replicas over the one
+   store, window 2 ms, max batch 64, driven by the launcher's own
+   ``launch.serve_match.serve_waves``: 32 client threads x 4 requests
+   at k = 8 while a writer ingests 16 chunks of 4,096 rows (the first
+   before the wave), every exact answer bitwise equal to
+   ``engine.topk(epoch=pin)``; a wave of 32 requests at a 5 ms deadline
+   (downgrades carry error bars, sheds are counted); 64 queries alone
+   equal to themselves coalesced 2, 4, ..., 64 at a time for sSAX and
+   SAX over 1M rows and tSAX and stSAX over 65,536; K1 launches equal
+   to the dispatches' summed rounds; QPS, latency quantiles, requests
+   per dispatch, tiers, replica placement and peak device memory
+   printed; then K2 at a full 64-query dispatch over the store's
+   symbols and K1 at 64-query rounds of B = 256 and 4,096 on the
+   corpus, each against its plain version.  (b)
+   ``profile.SelfJoinEngine`` over phase 5's sSAX windows of the first
+   64 rows (53,824 windows): the device stream route on
+   ``make_mesh(4)`` with ``verify="device"`` (no row and no candidate
+   order on the host; K1 launches == rounds, one K2 launch per chunk),
+   then K2 at one 256-window chunk over the view's symbols (the
+   kernel's grouped-table branch) and K1 at one round of that chunk
+   (256 x 64 windows of m = 240), each against its plain version;
+   motif and discord requests through a session; at 16 rows (13,456
+   windows) the device, linear host and indexed routes each bitwise
+   equal to ``scan_profile`` (K1 over all pairs).  (c) ``windowed_euclid(
+   method="fft")`` at K5's scan shape, strides 4 and 1, within
+   ``fft_tolerance(240)`` of K5, both timed.
+9. Print each path's launch counts (each kernel of a path > 0) and the
+   ``{"kernels": [...]}`` line with the launches of all seven paths.
+10. Print the card's name and power limit, then the result line.
 
 It imports neither JAX nor the JAX package, needs the repository beside
 it, and exits nonzero without printing a result when there is no card.
@@ -146,6 +175,16 @@ REPLACES = {
     "windowed_euclid": "src/repro/kernels/windowed_euclid.py:127",
 }
 MAIN_KERNELS = ("euclid", "ssax_dist", "sax_dist", "paa")
+# the serving phase: the service over phase 4's indexed 1M sSAX store
+SERVE = dict(clients=32, requests=4, k=8, window_s=0.002, max_batch=64,
+             ingest_chunks=16, ingest_rows=4096, deadline_s=0.005)
+NEUTRAL_Q, NEUTRAL_SIZES = 64, (1, 2, 4, 8, 16, 32, 64)
+NEUTRAL_BATCH = 4096          # verification batch of the sax/tsax/stsax
+#                               neutrality engines (SAX verifies ~250k
+#                               rows per query: at 256 per round the 127
+#                               dispatches would take minutes)
+SJ_ROWS, SJ_SCAN_ROWS, SJ_CHUNK = 64, 16, 256  # self-join rows, chunk
+SELFJOIN_KERNELS = ("euclid", "ssax_dist", "paa")
 
 
 def fail(msg: str):
@@ -811,7 +850,8 @@ def same_answer(np, a, b) -> bool:
 
 def index_path(torch, np, dev, main):
     """Phase 4: the index path on phase 3's corpus, then its checks.
-    Returns the kernels' launch counts during the path alone."""
+    Returns the kernels' launch counts during the path alone and the
+    indexed 1M sSAX store, which the serving phase serves."""
     import tempfile
     from repro_torch.core.engine import MatchEngine
     from repro_torch.kernels import launch_counts, reset_launch_counts
@@ -922,6 +962,7 @@ def index_path(torch, np, dev, main):
             f"{tr.span_seconds('verify'):.3f} s; equal to its untraced "
             f"call bitwise with the same launches {calls}; check_trace "
             f"clean")
+    ssax_store = engine.store        # the serving phase serves it
     del engine
 
     # the other encoders, indexed over the first N_SMALL rows
@@ -995,7 +1036,7 @@ def index_path(torch, np, dev, main):
     rounds_check("index path", all_calls, exact_fetch=True)
     sweep_check("index path", [c for (src, _), (_, _, c) in runs.items()
                                if src.startswith("linear")])
-    return counts
+    return counts, ssax_store
 
 
 def subseq_path(torch, np, dev):
@@ -1605,6 +1646,457 @@ def ingest_while_serving(np, engine, Q, extra, frozen, row_bytes, call):
         f"the answer then, bitwise")
 
 
+class RoundsLog:
+    """Logs the verification rounds of every ``topk`` call of some
+    engines (the session's tiers, ``topk_approx`` included, all end in
+    ``engine.topk``), from any thread, until :meth:`close`."""
+
+    def __init__(self, engines):
+        self.rounds = []
+        self._engines = list(engines)
+        for eng in self._engines:
+            def topk(*a, _inner=eng.topk, **kw):
+                res = _inner(*a, **kw)
+                self.rounds.append(res.rounds)
+                return res
+            eng.topk = topk
+
+    def close(self) -> int:
+        for eng in self._engines:
+            del eng.topk
+        return sum(self.rounds)
+
+
+def served(reqs, what: str):
+    """Fail unless every request was served: a shed or failed request
+    (an engine error resolves its requests with the error) is never
+    counted as served."""
+    bad = [r for r in reqs if not r.ok]
+    if bad:
+        fail(f"{what}: {len(bad)} of {len(reqs)} requests not served, "
+             f"e.g. {bad[0].shed_reason}: {bad[0].error}")
+    return reqs
+
+
+def k2_on_path(torch, np, ops, ref, enc, rep, queries, dev, name):
+    """K2's batched entry at a path's sweep shape, on the path's own
+    symbols (``rep``: the store's or view's (N, L) / (N, W) host leaves)
+    and queries (encoded and tabled as the sweep does), held against its
+    plain version within TOL: the launch whole, the plain version in
+    row blocks.  Returns the max abs error."""
+    seas, res = (torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+                 for a in rep)
+    qs, qr = enc.encode(torch.from_numpy(
+        np.ascontiguousarray(queries, np.float32)).to(dev))
+    tabs = ops.make_ssax_query_tables(qs, qr, enc.b_seas, enc.b_res)
+    got = ops.ssax_dist_batch(seas, res, *tabs)
+    err, step = 0.0, 1 << 18
+    for lo in range(0, seas.shape[0], step):
+        err = max(err, check(f"{name} rows {lo}..", got[:, lo:lo + step],
+                             ref.ssax_dist_batch_ref(
+                                 seas[lo:lo + step], res[lo:lo + step],
+                                 *tabs), TOL["ssax_dist"]))
+    say(f"kernel ssax_dist at the {name} shape [seas {tuple(seas.shape)}, "
+        f"res {tuple(res.shape)}, Q={len(queries)} in one launch] == plain "
+        f"within {TOL['ssax_dist']}, max abs err {err:.3g}")
+    return err
+
+
+def k1_on_path(torch, np, ops, ref, rows_of, n, queries, B, dev, name,
+               seed):
+    """K1's gathered entry at a verification round's shape: the path's
+    ``queries`` all active, each against ``B`` distinct candidates drawn
+    from the path's ``n`` rows (``rows_of(ids)`` gives them as the
+    verifier sees them), the gathered rows their union; held against its
+    plain version within TOL.  Returns the max abs error."""
+    rng = np.random.default_rng(seed)
+    cand = np.stack([rng.choice(n, B, replace=False) for _ in queries])
+    uniq, inv = np.unique(cand.ravel(), return_inverse=True)
+    gather = inv.reshape(cand.shape).astype(np.int64)
+    rows = torch.from_numpy(np.ascontiguousarray(rows_of(uniq),
+                                                 np.float32)).to(dev)
+    q = torch.from_numpy(np.ascontiguousarray(queries, np.float32)).to(dev)
+    err = check(name, ops.euclid_gather(rows, q, gather),
+                ref.euclid_gather_ref(rows, q, torch.from_numpy(gather)
+                                      .to(dev)), TOL["euclid"])
+    say(f"kernel euclid gathered at the {name} shape [Qa={len(queries)}, "
+        f"B={B}, rows {tuple(rows.shape)}] == plain within {TOL['euclid']}"
+        f", max abs err {err:.3g}")
+    return err
+
+
+def service_path(torch, np, ops, ref, dev, D, store):
+    """Phase 8a: the service (``service.MatchSession``) over phase 4's
+    indexed 1M sSAX store — ``make_engine_service`` on
+    ``make_mesh(DEV_SHARDS)`` with ``verify="device"``, two replicas
+    over the one store — driven by ``launch.serve_match.serve_waves``
+    (concurrent clients while a writer ingests, the oracle at each pin,
+    the deadline wave), then the batch-neutrality sessions of all four
+    encoders; then its checks, and K2 and K1 at the path's shapes on its
+    data.  Returns the kernels' launch counts during the path and the
+    kernels' max abs errors at those shapes."""
+    import threading
+    from repro_torch.core.distributed import make_engine_service, make_mesh
+    from repro_torch.data.synthetic import season_corpus
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.ops import make_pairwise
+    from repro_torch.launch.match import launcher_technique
+    from repro_torch.launch.serve_match import report, serve_waves
+    from repro_torch.obs import MetricsRegistry
+    from repro_torch.service import MatchSession
+    c = SERVE
+    mesh = make_mesh(DEV_SHARDS, dev)
+    n_q = c["clients"] * c["requests"]
+    X = season_corpus(n_q + c["ingest_chunks"] * c["ingest_rows"], T, L,
+                      STRENGTH, per_series_strength=True, seed=12)
+    Q, extra = X[:n_q], X[n_q:]
+    n0 = store.n
+
+    def service(enc, st, data=None, batch=BATCH, metrics=None):
+        return make_engine_service(enc, data, mesh, store=st,
+                                   batch_size=batch, verify="device",
+                                   pairwise=make_pairwise(enc),
+                                   metrics=metrics)
+
+    reg = MetricsRegistry()
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    engines = [service(store.encoder, store, metrics=reg),
+               service(store.encoder, store)]
+    for eng in engines:              # each replica uploads its mirrors
+        eng.topk(Q[:1], k=1)
+    sync(torch, dev)
+    say(f"service set-up: 2 engine replicas over the one {n0}-row sSAX "
+        f"store (index of {store.index.n_nodes} nodes from phase 4), "
+        f"{DEV_SHARDS} virtual shards each, verify=device, mirrors "
+        f"uploaded in {time.perf_counter() - t0:.2f} s")
+    # the other encoders' neutrality engines are set-up too
+    neutral = {"ssax": engines[0]}
+    for tech, rows in (("sax", D), ("tsax", D[:N_SMALL]),
+                       ("stsax", D[:N_SMALL])):
+        neutral[tech] = service(launcher_technique(tech, T, L, STRENGTH),
+                                None, data=rows, batch=NEUTRAL_BATCH)
+        neutral[tech].topk(Q[:1], k=1)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts()
+    log = RoundsLog(list(neutral.values()) + engines[1:])
+    session = MatchSession(engines[0], replicas=engines[1:], metrics=reg,
+                           window_s=c["window_s"], max_batch=c["max_batch"],
+                           max_queue=4 * n_q).start()
+    cal = session.calibrate(Q[:1], k=c["k"])
+    # the first chunk carries the one doubling of the store's host arrays
+    # (2 x 1M rows): it goes in before wave 1, so the wave runs beside
+    # the ingest's steady chunks.  Request j of each client is admitted
+    # once chunk j is in, so the wave's pins span the ingest
+    rows_in = c["ingest_rows"]
+    ingest_s = []
+    chunk_in = [threading.Event() for _ in range(c["ingest_chunks"])]
+
+    def ingest(j):
+        t1 = time.perf_counter()
+        engines[0].ingest(extra[j * rows_in:(j + 1) * rows_in])
+        ingest_s.append(time.perf_counter() - t1)
+        chunk_in[j].set()
+
+    def writer(stop):                # all of its chunks, stop or not
+        for j in range(1, c["ingest_chunks"]):
+            ingest(j)
+
+    ingest(0)
+    run = serve_waves(session, engines[0], Q, clients=c["clients"],
+                      requests=c["requests"], k=c["k"],
+                      deadline_s=c["deadline_s"], writer=writer,
+                      gate=lambda i: chunk_in[i % c["requests"]].wait(300),
+                      timeout=300.0)
+    session.close()
+    if run.problems:
+        fail("service: " + "; ".join(run.problems))
+    pins = {r.epoch.n_rows for r in run.wave1}
+    if len(pins) < 2:
+        fail(f"service wave 1: every request pinned at {pins}: the wave "
+             f"did not span the ingest")
+
+    # batching neutrality: 64 queries, alone and coalesced 2 .. 64 at a
+    # time, through sessions of each encoder's engine
+    alone, n_batches, t_neutral = {}, {}, {}
+    for tech, eng in neutral.items():
+        t1 = time.perf_counter()
+        qn = Q[:NEUTRAL_Q]
+        for b in NEUTRAL_SIZES:
+            r = MetricsRegistry()
+            sess = MatchSession(eng, metrics=r, window_s=0.05, max_batch=b,
+                                max_queue=NEUTRAL_Q)
+            reqs = [sess.submit(q, k=c["k"], tier="linear") for q in qn]
+            sess.start()
+            for req in reqs:
+                req.wait(300)
+            sess.close()
+            served(reqs, f"neutrality {tech} batches of {b}")
+            n_batches[tech, b] = r.snapshot()["counters"]["serve.batches"]
+            if b == 1:
+                alone[tech] = reqs
+            for a, req in zip(alone[tech], reqs):
+                if not (np.array_equal(a.indices, req.indices)
+                        and np.array_equal(a.distances, req.distances)):
+                    fail(f"neutrality {tech}: a query coalesced {b} at a "
+                         f"time differs from the query alone")
+        t_neutral[tech] = time.perf_counter() - t1
+    rounds = log.close()
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+
+    # -- checks --------------------------------------------------------
+    if counts["euclid"] != rounds:
+        fail(f"service path: {counts['euclid']} K1 launches in {rounds} "
+             f"verification rounds")
+    for (tech, b), nb in n_batches.items():
+        if nb != NEUTRAL_Q // b:
+            fail(f"neutrality {tech}: {nb} dispatches of {b}, not "
+                 f"{NEUTRAL_Q // b}")
+    if store.n != n0 + len(extra) or store.index.n != store.n:
+        fail(f"service ingest: store {store.n} rows, index "
+             f"{store.index.n}, expected {n0 + len(extra)}")
+    cs = reg.snapshot()["counters"]
+    if sum(v for k, v in cs.items() if k.startswith("serve.shed.")) != \
+            cs.get("serve.rejected", 0) or cs.get("match.rows_to_host"):
+        fail(f"service: shed accounting or rows to host ({cs})")
+    say(f"service calibration: " + ", ".join(
+        f"{t} {e['wall_s'] * 1e3:.1f} ms" for t, e in cal.items()))
+    say(f"service ({c['clients']} clients x {c['requests']} requests, "
+        f"k={c['k']}, window {c['window_s'] * 1e3:g} ms, max batch "
+        f"{c['max_batch']}; request j of each client admitted once ingest "
+        f"chunk j is in):")
+    for line in report(run):
+        say(f"  {line}")
+    say(f"service ingest while serving: {len(ingest_s)} chunks of {rows_in}"
+        f" rows -> {store.n} rows (index {store.index.n}), ingest "
+        f"{sum(ingest_s):.3f} s (the first, before wave 1, with the "
+        f"store's doubling, {ingest_s[0]:.3f} s; the others beside wave 1 "
+        f"{min(ingest_s[1:]):.3f}-{max(ingest_s[1:]):.3f} s)")
+    say(f"service neutrality: {NEUTRAL_Q} queries alone == coalesced "
+        f"{', '.join(map(str, NEUTRAL_SIZES[1:]))} at a time, bitwise, "
+        f"for {', '.join(f'{t} N={e.store.n} ({t_neutral[t]:.1f} s)' for t, e in neutral.items())}"
+        f" (verification batch {NEUTRAL_BATCH} rows per query per round "
+        f"for sax, tsax, stsax; dispatches per size as expected)")
+    say(f"service path: K1 launches {counts['euclid']} == verification "
+        f"rounds {rounds} over {len(log.rounds)} engine calls (the "
+        f"oracle's included); match.rows_to_host "
+        f"{cs.get('match.rows_to_host', 0):g}; peak device memory "
+        f"{peak:.2f} GB; launches {counts}")
+
+    # K2 and K1 at the path's shapes, on its data: the sweep of a full
+    # 64-query dispatch over the store's symbols, and a 64-query
+    # verification round at the sSAX engine's batch and the neutrality
+    # engines'
+    errs = {"ssax_dist": k2_on_path(torch, np, ops, ref, store.encoder,
+                                    store.rep_view(), Q[:c["max_batch"]],
+                                    dev, "service sweep")}
+    errs["euclid"] = max(
+        k1_on_path(torch, np, ops, ref, lambda ids: D[ids], len(D),
+                   Q[:c["max_batch"]], b, dev, f"service round B={b}",
+                   seed=b)
+        for b in (BATCH, NEUTRAL_BATCH))
+    del session, engines, neutral
+    return counts, errs
+
+
+def selfjoin_path(torch, np, ops, ref, dev, sub_D):
+    """Phase 8b: the self-join (``profile.SelfJoinEngine``) over phase
+    5's sSAX windows of the first SJ_ROWS rows: the device stream route
+    on ``make_mesh(DEV_SHARDS)`` with ``verify="device"`` (the path),
+    K2 and K1 at its shapes on its windows, and a ``selfjoin`` request
+    through a session; at SJ_SCAN_ROWS rows the device, linear host and
+    indexed routes, each bitwise equal to ``scan_profile`` (K1 over all
+    pairs).  Returns the kernels' launch counts during the device route
+    and the kernels' max abs errors at its shapes."""
+    from repro_torch.core.distributed import make_mesh
+    from repro_torch.core.techniques import make_technique
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.ops import make_pairwise
+    from repro_torch.obs import MetricsRegistry
+    from repro_torch.profile import SelfJoinEngine, topk_discords, \
+        topk_motifs
+    from repro_torch.service import MatchSession
+    from repro_torch.subseq import SubseqEngine, WindowView
+    enc = make_technique("ssax", T=SUB_M, W=SUB_M // L, L=L,
+                         r2_season=STRENGTH)
+    mesh = make_mesh(DEV_SHARDS, dev)
+
+    def engine(view, **kw):
+        return SelfJoinEngine(view, pairwise=make_pairwise(enc),
+                              chunk=SJ_CHUNK, **kw)
+
+    def same(a, b):
+        return (np.array_equal(a.distances, b.distances)
+                and np.array_equal(a.neighbors, b.neighbors))
+
+    reset_launch_counts()
+    reg = MetricsRegistry()
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    view = WindowView(enc, sub_D[:SJ_ROWS], stride=SUB_STRIDE, device=dev)
+    dev_eng = engine(view, verify="device", mesh=mesh, metrics=reg)
+    prof = dev_eng.profile()
+    sync(torch, dev)
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    n_chunks = -(-prof.n // SJ_CHUNK)
+    cs = reg.snapshot()["counters"]
+    if prof.source != "stream" or cs["selfjoin.rows_to_host"] or \
+            cs["selfjoin.host_order_bytes"]:
+        fail(f"self-join device route: source {prof.source}, counters "
+             f"{cs}")
+    if counts["euclid"] != prof.rounds or counts["ssax_dist"] != n_chunks:
+        fail(f"self-join device route: {counts['euclid']} K1 launches in "
+             f"{prof.rounds} rounds, {counts['ssax_dist']} K2 launches "
+             f"for {n_chunks} chunks")
+    if not (np.isfinite(prof.distances).all() and (prof.neighbors >= 0).all()):
+        fail("self-join device route: a window has no neighbour")
+    say(f"self-join device route over {view.n} windows ({SJ_ROWS} rows, "
+        f"m={SUB_M}, stride {SUB_STRIDE}, exclusion {prof.exclusion}): "
+        f"{wall:.2f} s with the view's encode; windows verified per query "
+        f"{prof.raw_accesses.mean():.1f}, pruned fraction "
+        f"{prof.pruned_fraction.mean():.6f}, {prof.rounds} rounds in "
+        f"{n_chunks} chunks of {SJ_CHUNK}; rows_to_host 0, "
+        f"host_order_bytes 0; launches {counts}")
+
+    # K2 and K1 at the route's shapes, on its windows: one chunk's sweep
+    # (SJ_CHUNK query windows, whose tables exceed shared memory) over
+    # the view's symbols, and one verification round of the chunk (each
+    # query window against the engine's batch of candidate windows)
+    zq = dev_eng._query_windows(np.arange(SJ_CHUNK, dtype=np.int64))
+    errs = {"ssax_dist": k2_on_path(torch, np, ops, ref, enc,
+                                    view.rep_view(), zq, dev,
+                                    "self-join chunk sweep"),
+            "euclid": k1_on_path(torch, np, ops, ref, dev_eng._query_windows,
+                                 view.n, zq, dev_eng._sub.batch_size, dev,
+                                 "self-join round", seed=5)}
+
+    # a selfjoin request through a session (served from the profile)
+    sess = MatchSession(SubseqEngine(view, verify="device", mesh=mesh,
+                                     pairwise=make_pairwise(enc)),
+                        selfjoin=dev_eng, window_s=0.01)
+    reqs = [sess.submit_selfjoin(kind, k=3) for kind in ("motifs",
+                                                          "discords")]
+    sess.start()
+    for r in reqs:
+        r.wait(300)
+    sess.close()
+    served(reqs, "self-join session")
+    if reqs[0].result != topk_motifs(prof, view.locate, 3) or \
+            reqs[1].result != topk_discords(prof, view.locate, 3):
+        fail("self-join session: motifs or discords differ from the "
+             "profile's")
+    say(f"self-join session: motifs {reqs[0].result}, discords "
+        f"{reqs[1].result} == the profile's (tier "
+        f"{reqs[0].tier_served}, epoch {reqs[0].epoch.n_rows} windows)")
+
+    small = WindowView(enc, sub_D[:SJ_SCAN_ROWS], stride=SUB_STRIDE,
+                       device=dev)
+    t0 = time.perf_counter()
+    scan = engine(small, verify="host").scan_profile()
+    t_scan = time.perf_counter() - t0
+    # the host routes sort a (chunk, n) bound matrix on the host per
+    # chunk (O(n^2) host work): at SJ_ROWS rows the linear route took
+    # 353 s and the indexed 140 s on an NVIDIA H100, so they run at
+    # SJ_SCAN_ROWS rows, beside the device route and the scan
+    routes = {"device": engine(small, verify="device", mesh=mesh),
+              "linear": engine(small, verify="host")}
+    got, secs = {}, {}
+    for name, e in routes.items():
+        t0 = time.perf_counter()
+        got[name] = e.profile()
+        secs[name] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    small.build_index(leaf_fill=LEAF_FILL)
+    got["index"] = engine(small, verify="host").profile()
+    secs["index"] = time.perf_counter() - t0
+    for name, p in got.items():
+        if not same(p, scan):
+            fail(f"self-join {small.n} windows: the {name} route differs "
+                 f"from scan_profile")
+    say(f"self-join {small.n} windows ({SJ_SCAN_ROWS} rows): device, "
+        f"linear and indexed routes == scan_profile (K1 over all "
+        f"{small.n * small.n} pairs, {t_scan:.2f} s) bitwise; "
+        + ", ".join(f"{n} {t:.2f} s" for n, t in secs.items())
+        + " (indexed with its build); windows verified per query "
+        + ", ".join(f"{n} {p.raw_accesses.mean():.1f}"
+                    for n, p in got.items()))
+    return counts, errs
+
+
+def fft_profile(torch, np, ops, dev, sub):
+    """Phase 8c: ``windowed_euclid(method="fft")`` against K5 at K5's
+    scan shape (phase 5's corpus and queries), strides 4 and 1, within
+    ``fft_tolerance(m)``; both timed.  Returns the times, keyed by
+    stride."""
+    from repro_torch.kernels.fft_dot import fft_tolerance
+    from repro_torch.subseq import znorm_windows
+    x = torch.as_tensor(sub["D"]).to(dev)
+    q = torch.as_tensor(znorm_windows(sub["Q"])).to(dev)
+    tol = fft_tolerance(SUB_M)
+    out = {}
+    for stride in (SUB_STRIDE, 1):
+        k5 = ops.windowed_euclid(x, q, stride)
+        fft = ops.windowed_euclid(x, q, stride, method="fft")
+        err = (fft - k5).abs()
+        if fft.shape != k5.shape or not bool(
+                (err <= tol["atol"] + tol["rtol"] * k5.abs()).all()):
+            fail(f"FFT stride {stride}: beyond fft_tolerance({SUB_M}) of "
+                 f"K5 (max abs err {float(err.max())})")
+        del k5, fft, err
+        ms_fft = time_ms(torch, lambda: ops.windowed_euclid(
+            x, q, stride, method="fft"), 10)
+        ms_k5 = time_ms(torch, lambda: ops.windowed_euclid(x, q, stride),
+                        10)
+        out[stride] = (ms_fft, ms_k5)
+        say(f"FFT distance profile stride {stride} [Q={N_QUERIES}, "
+            f"{tuple(x.shape)}, m={SUB_M}]: within fft_tolerance "
+            f"(rtol {tol['rtol']}, atol {tol['atol']:.3f}) of K5; FFT "
+            f"{ms_fft:.5f} ms vs K5 {ms_k5:.5f} ms (CUDA events)")
+    return out
+
+def serving_path(torch, np, ops, ref, dev, D, store, sub):
+    """Phase 8: the service, the self-join and the FFT distance profile.
+    Returns the service's and the self-join's launch counts, the
+    kernels' max abs errors at their shapes and the FFT times."""
+    t0 = time.perf_counter()
+    svc, svc_errs = service_path(torch, np, ops, ref, dev, D, store)
+    say(f"phase 8a: service exact ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    sj, sj_errs = selfjoin_path(torch, np, ops, ref, dev, sub["D"])
+    say(f"phase 8b: self-join exact ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    fft = fft_profile(torch, np, ops, dev, sub)
+    say(f"phase 8c: FFT profile within its tolerance "
+        f"({time.perf_counter() - t0:.1f} s)")
+    errs = {n: max(svc_errs.get(n, 0.0), sj_errs.get(n, 0.0))
+            for n in {*svc_errs, *sj_errs}}
+    return svc, sj, errs, fft
+
+
+def serve_only(torch, np, ops, ref, dev):
+    """``--serve``: phase 8 alone, on the corpora and the indexed 1M sSAX
+    store that phases 3 to 5 would have built (made here from the same
+    seeds)."""
+    from repro_torch.data.synthetic import season_corpus, season_dataset
+    from repro_torch.launch.match import make_engine, subseq_queries
+    t0 = time.perf_counter()
+    D = season_corpus(N_MAIN + N_QUERIES, T, L, STRENGTH,
+                      per_series_strength=True, seed=1)[N_QUERIES:]
+    engine = make_engine("ssax", D, L=L, strength=STRENGTH, batch=BATCH,
+                         verify="auto", device=dev)
+    engine.store.build_index(leaf_fill=LEAF_FILL)
+    sub_D = season_dataset(SUB_ROWS, SUB_T, L, STRENGTH,
+                           per_series_strength=True, seed=7)
+    sub = dict(D=sub_D, Q=subseq_queries(sub_D, SUB_M, N_QUERIES,
+                                         np.random.default_rng(7))[0])
+    say(f"--serve set-up: corpus, indexed sSAX store and window corpus in "
+        f"{time.perf_counter() - t0:.1f} s")
+    serving_path(torch, np, ops, ref, dev, D, engine.store, sub)
+
+
 def rounds_check(path: str, calls, exact_fetch: bool):
     """One gathered K1 launch per verification round: every topk call's
     K1 launches must equal its rounds.  On whole series every round is
@@ -1678,12 +2170,14 @@ def main():
     _lib.load()
     say(f"phase 1: kernels built from {_lib.CSRC.relative_to(root)} in "
         f"{_lib.build_seconds():.1f} s -> {_lib.library_path().parent}")
-    if sys.argv[1:] in (["--k5"], ["--k2"], ["--split"]):
+    if sys.argv[1:] in (["--k5"], ["--k2"], ["--split"], ["--serve"]):
         if sys.argv[1] == "--k5":
             k5_shapes(torch, ops, ref, dev)
         elif sys.argv[1] == "--k2":
             k2_shapes(torch, ops, ref, *random_makers(torch, dev, 0))
             k2_scaling(torch, ops, dev)
+        elif sys.argv[1] == "--serve":
+            serve_only(torch, np, ops, ref, dev)
         else:
             split_only(torch, np, dev)
         return
@@ -1698,7 +2192,7 @@ def main():
     say(f"phase 3: main path exact ({time.perf_counter() - t0:.1f} s)")
 
     t0 = time.perf_counter()
-    idx_counts = index_path(torch, np, dev, main)
+    idx_counts, ssax_store = index_path(torch, np, dev, main)
     say(f"phase 4: index path exact ({time.perf_counter() - t0:.1f} s)")
 
     t0 = time.perf_counter()
@@ -1713,15 +2207,24 @@ def main():
 
     t0 = time.perf_counter()
     dev_counts = device_path(torch, np, dev, main, sub)
-    del main, sub
     say(f"phase 7: device-resident path exact "
         f"({time.perf_counter() - t0:.1f} s)")
+
+    t0 = time.perf_counter()
+    svc_counts, sj_counts, path_errs, _ = serving_path(
+        torch, np, ops, ref, dev, main["D"], ssax_store, sub)
+    del main, sub, ssax_store
+    for name, e in path_errs.items():     # the kernel table's shapes
+        rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], e)
+    say(f"phase 8: serving path exact ({time.perf_counter() - t0:.1f} s)")
 
     paths = (("main", counts, MAIN_KERNELS),
              ("index", idx_counts, MAIN_KERNELS),
              ("subsequence", sub_counts, tuple(sub_counts)),
              ("window index", win_counts, MAIN_KERNELS),
-             ("device-resident", dev_counts, MAIN_KERNELS))
+             ("device-resident", dev_counts, MAIN_KERNELS),
+             ("service", svc_counts, MAIN_KERNELS),
+             ("self-join", sj_counts, SELFJOIN_KERNELS))
     for path, c, names in paths:
         missing = [n for n in names if c[n] <= 0]
         if missing:
@@ -1737,7 +2240,7 @@ def main():
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": r["library_ms"]})
-    say(f"phase 8: every kernel launched on its paths; total "
+    say(f"phase 9: every kernel launched on its paths; total "
         f"{time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
 

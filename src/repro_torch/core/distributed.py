@@ -502,15 +502,22 @@ class ShardedRepSweep:
 
     # -- device mirrors ---------------------------------------------------
     def _sync(self):
-        if self._synced_version == self.store.version:
+        # "synced" means synced to the published epoch: an append raises
+        # ``store.version`` before it publishes, and a sync in that gap
+        # would only upload the old epoch's rows again
+        if self._synced_version == self.store.current_epoch().epoch:
             return
         with self._sync_lock:
-            if self._synced_version == self.store.version:
+            if self._synced_version == self.store.current_epoch().epoch:
                 return
             # capture the frontier first: a writer may append while we
-            # sync, so everything below is sliced to this (version, n)
-            version = self.store.version
-            n = self.store.n
+            # sync, so everything below is sliced to this (version, n).
+            # The published epoch, not ``store.n``: an append raises n
+            # before it re-points ``store.data`` at the grown rows, and
+            # publishes its epoch last, so rows [0, n) of the epoch are
+            # in both the raw rows and the representation
+            ep = self.store.current_epoch()
+            version, n = ep.epoch, ep.n_rows
             head = (n // self.n_shards) * self.n_shards
             rep = self.store.rep_view()
             leaves = _leaves(rep)

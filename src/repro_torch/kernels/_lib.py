@@ -128,8 +128,9 @@ class CudaKernel:
     pointer, which every entry takes and :meth:`launch` supplies.
     ``more`` maps further entry points of the same kernel to their
     argtypes; ``launch(..., symbol=)`` picks one.  ``launches`` counts
-    successful launches of every entry; only :meth:`launch` adds to
-    it."""
+    successful launches of every entry; only :meth:`launch` adds to it,
+    under a lock, so that launches from concurrent threads (a service's
+    dispatcher, replica workers and ingest writer) lose no count."""
 
     def __init__(self, name: str, symbol: str, argtypes: list,
                  more: dict | None = None):
@@ -139,6 +140,7 @@ class CudaKernel:
                          for s, a in {symbol: argtypes, **(more or {})}
                          .items()}
         self.launches = 0
+        self._count_lock = threading.Lock()
         self._fns: dict = {}
 
     def _bind(self, symbol: str):
@@ -158,7 +160,8 @@ class CudaKernel:
         if err:
             raise RuntimeError(f"CUDA kernel {self.name} ({symbol}) failed "
                                f"to launch: cudaError_t {err}")
-        self.launches += 1
+        with self._count_lock:
+            self.launches += 1
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:

@@ -1,5 +1,6 @@
-"""Dispatchers for the five kernels, the query-table builders, and the
-sweep the engine's ``pairwise=`` hook takes.
+"""Dispatchers for the five kernels, the query-table builders, the
+sweep the engine's ``pairwise=`` hook takes, and the FFT twin of the
+distance profile.
 
 Each dispatcher is the kernel's wrapper: a CUDA tensor launches the
 hand-written kernel, a CPU tensor runs the plain version in ``ref.py``.
@@ -88,14 +89,39 @@ def make_pairwise(encoder):
 
 def windowed_euclid(x, q, stride: int = 1, method: str = "accum"):
     """(N, T) raw rows vs (m,) or (Q, m) z-normalized queries -> (N, S)
-    or (Q, N, S) squared z-normalized window distances through K5 (its
-    plain version for CPU tensors).  Only the m-step accumulation
-    (``method="accum"``) is ported; the FFT sliding dot comes with the
-    self-join (ROADMAP queue 1 item 9)."""
+    or (Q, N, S) squared z-normalized window distances (the MASS-style
+    distance profile).
+
+    ``method`` picks the sliding-dot-product formulation: ``"accum"``
+    (default) is the m-step accumulation — K5 for CUDA tensors, its
+    plain version for CPU tensors — and the only path exact verification
+    consumes; ``"fft"`` is the MASS rfft/irfft path
+    (``kernels.fft_dot.windowed_euclid_fft``, ``torch.fft`` on the
+    caller's device, O(T log T) per row), which agrees with the
+    accumulation within ``fft_dot.fft_tolerance(m)``, never bitwise."""
     if method == "fft":
-        raise NotImplementedError(
-            'windowed_euclid(method="fft") is not ported yet: it comes '
-            "with kernels/fft_dot.py, ROADMAP queue 1 item 9")
+        from repro_torch.kernels.fft_dot import windowed_euclid_fft
+        if q.ndim == 1:
+            return windowed_euclid_fft(x, q[None], stride=stride)[0]
+        return windowed_euclid_fft(x, q, stride=stride)
     if method != "accum":
         raise ValueError(f"unknown windowed_euclid method: {method!r}")
     return _windowed.windowed_euclid(x, q, stride)
+
+
+def sliding_dot(x, q, stride: int = 1, method: str = "fft"):
+    """(N, T) rows vs (m,) or (Q, m) queries -> (N, S) or (Q, N, S)
+    sliding dot products.  ``method="fft"`` (default) is the MASS
+    rfft/irfft correlation, ``"accum"`` the m-step accumulation twin —
+    both from ``kernels.fft_dot``, held against
+    ``ref.sliding_dot_ref``."""
+    from repro_torch.kernels.fft_dot import sliding_dot_accum, sliding_dot_fft
+    if method == "fft":
+        fn = sliding_dot_fft
+    elif method == "accum":
+        fn = sliding_dot_accum
+    else:
+        raise ValueError(f"unknown sliding_dot method: {method!r}")
+    if q.ndim == 1:
+        return fn(x, q[None], stride=stride)[0]
+    return fn(x, q, stride=stride)

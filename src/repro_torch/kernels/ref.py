@@ -1,5 +1,6 @@
 """Plain PyTorch versions of the five kernels, K1 and K2 with both their
-entries (the allclose ground truth).
+entries (the allclose ground truth), and the explicit-window sliding dot
+product the FFT path of ``kernels.fft_dot`` is held against.
 
 Each mirrors its counterpart in the JAX package's ``kernels/ref.py``.
 A wrapper runs these for CPU tensors; the CPU tests hold them against
@@ -74,6 +75,16 @@ def euclid_gather_ref(rows, q, gather):
         return torch.empty(tuple(gather.shape), dtype=torch.float32)
     return torch.stack([euclid_ref(rows[g], qi)
                         for g, qi in zip(gather, q)])
+
+
+def sliding_dot_ref(x, q, stride: int = 1):
+    """(N, T) rows vs (Q, m) queries -> (Q, N, S) f32 sliding dot
+    products ``sum_i x[n, s*stride + i] * q[qi, i]``, windows
+    materialized explicitly — the ground truth for both dot-product
+    paths of ``kernels.fft_dot``."""
+    m = q.shape[-1]
+    w = x.to(torch.float32).unfold(1, m, stride)              # (N, S, m)
+    return torch.einsum("nsm,qm->qns", w, q.to(torch.float32))
 
 
 def windowed_euclid_ref(x, q, stride: int = 1):

@@ -448,8 +448,8 @@ def test_tree_candidates_rejects_bad_collect_and_device_order(season):
 
 def test_sharded_paths_name_their_item(season):
     """The sharded paths (ROADMAP item 8) now run and equal their
-    unsharded counterparts bitwise; what is still unported keeps naming
-    its item (the FFT profile, item 9)."""
+    unsharded counterparts bitwise, and the FFT profile (item 9) answers
+    as the reference's within its documented tolerance."""
     _, D = season
     from repro_torch.core.distributed import make_mesh
     from repro_torch.kernels import ops
@@ -463,9 +463,18 @@ def test_sharded_paths_name_their_item(season):
     adapter = adapter_for(_enc("ssax"), "cpu")
     np.testing.assert_array_equal(adapter.features_sharded(D[:5], mesh),
                                   adapter.features(D[:5]))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ops.windowed_euclid(torch.zeros(2, 8), torch.zeros(4),
-                            method="fft")
+    # the FFT profile (item 9) is ported: it answers as the reference's
+    pytest.importorskip("jax")
+    from repro.kernels.fft_dot import windowed_euclid_fft
+    from repro_torch.kernels.fft_dot import fft_tolerance
+    x, q = D[:2, :64], D[2, :16]
+    q = (q - q.mean()) / q.std()
+    got = ops.windowed_euclid(torch.from_numpy(x), torch.from_numpy(q),
+                              method="fft")
+    assert got.shape == (2, 49)
+    np.testing.assert_allclose(
+        got.numpy(), np.asarray(windowed_euclid_fft(x, q[None]))[0],
+        **fft_tolerance(16))
 
 
 def test_build_index_rejects_rep_only_store():

@@ -75,6 +75,27 @@ def test_launcher_defaults_to_the_card(argv):
         main(argv)
 
 
+@pytest.mark.parametrize("argv", [["--dryrun"],
+                                  ["--dryrun", "--replicas", "2"]])
+def test_serve_launcher_defaults_to_the_card(argv):
+    """The service launcher builds its engine on ``make_mesh(1,
+    --device)``: without a card the default raises, never falling back
+    to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default runs there")
+    from repro_torch.launch.serve_match import main
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(argv)
+
+
+def test_selfjoin_launcher_defaults_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default runs there")
+    from repro_torch.launch.match import main
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["--dryrun", "--selfjoin"])
+
+
 def test_store_and_subseq_default_to_the_card():
     from repro_torch.core import make_technique
     from repro_torch.store import SymbolicStore

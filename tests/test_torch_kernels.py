@@ -289,14 +289,24 @@ def test_windowed_euclid_plain_constant_window(jref):
                               interpret=True), TOL["windowed"])
 
 
-def test_windowed_euclid_single_query_and_routes():
+def test_windowed_euclid_single_query_and_routes(jref):
     x = torch.from_numpy(RNG.normal(size=(3, 50)).astype(np.float32))
     q = torch.from_numpy(_znorm_queries(2, 10))
     both = ops.windowed_euclid(x, q, stride=4)
     one = ops.windowed_euclid(x, q[1], stride=4)
     assert one.shape == (3, 11) and torch.equal(one, both[1])
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ops.windowed_euclid(x, q, method="fft")
+    # the FFT route answers: the reference's FFT path and the
+    # accumulation within the documented FFT tolerance
+    from repro.kernels.fft_dot import windowed_euclid_fft
+    from repro_torch.kernels.fft_dot import fft_tolerance
+    fft = ops.windowed_euclid(x, q, stride=4, method="fft")
+    assert fft.shape == both.shape
+    np.testing.assert_allclose(
+        fft.numpy(), np.asarray(windowed_euclid_fft(x.numpy(), q.numpy(),
+                                                    stride=4)),
+        **fft_tolerance(10))
+    np.testing.assert_allclose(fft.numpy(), both.numpy(),
+                               **fft_tolerance(10))
     with pytest.raises(ValueError):
         ops.windowed_euclid(x, q, method="mass")
     with pytest.raises(ValueError):
@@ -622,3 +632,39 @@ def test_kernels_reject_wrong_dtypes_on_card(cuda):
                                         dtype=torch.int32),
                             *(torch.zeros(2, 10, 4, device=cuda),) * 2,
                             *(torch.zeros(2, 444, 4, device=cuda),) * 2)
+
+
+def test_launch_counter_loses_no_count_across_threads(monkeypatch):
+    """``CudaKernel.launch`` counts under a lock: 16 threads launching a
+    stubbed entry point at once lose no count, and a failed launch
+    raises and counts nothing.  The stub stands in for the C entry and
+    the stream lookup, so this runs without a card."""
+    import contextlib
+    import threading
+    import types
+    from repro_torch.kernels._lib import CudaKernel
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev: types.SimpleNamespace(cuda_stream=None))
+    k = CudaKernel("stub", "repro_stub", [], more={"repro_fail": []})
+    k._fns["repro_stub"] = lambda stream: 0
+    k._fns["repro_fail"] = lambda stream: 700
+    n_threads, per = 16, 2000
+    start = threading.Barrier(n_threads)
+    dev = torch.device("cuda")
+
+    def run():
+        start.wait()
+        for _ in range(per):
+            k.launch(dev)
+
+    threads = [threading.Thread(target=run) for _ in range(n_threads)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert k.launches == n_threads * per
+    with pytest.raises(RuntimeError, match="cudaError_t 700"):
+        k.launch(dev, symbol="repro_fail")
+    assert k.launches == n_threads * per
