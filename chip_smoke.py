@@ -6,6 +6,7 @@
     python3 chip_smoke.py --k2     # build, then time K2 alone (Q = 1..64)
     python3 chip_smoke.py --split  # build, then the main path's topk split
     python3 chip_smoke.py --serve  # build, then phase 8 alone
+    python3 chip_smoke.py --lm     # build, then phase 9 alone
 
 Phases, each failing loudly with a nonzero exit:
 
@@ -129,9 +130,35 @@ Phases, each failing loudly with a nonzero exit:
    equal to ``scan_profile`` (K1 over all pairs).  (c) ``windowed_euclid(
    method="fft")`` at K5's scan shape, strides 4 and 1, within
    ``fft_tolerance(240)`` of K5, both timed.
-9. Print each path's launch counts (each kernel of a path > 0) and the
-   ``{"kernels": [...]}`` line with the launches of all seven paths.
-10. Print the card's name and power limit, then the result line.
+9. Drive the LM path (``repro_torch.models``, ``serving.ServeEngine``):
+   (a) each of the ten architectures at ``reduced()`` width in f32,
+   the same weights on the card and on the CPU: prefill logits and 8
+   greedy decode steps within LM_TOL with equal tokens (a near-tie,
+   where the logits' difference decides the argmax, is printed), and
+   one ServeEngine wave of 5 mixed-length prompts over 2 slots (the
+   common-position path) with equal tokens on both devices (not for
+   paligemma and whisper: the engine prefills tokens only).  (b)
+   qwen3-0.6b at full width (28 layers, d_model 1024, 16/8 heads of
+   128, d_ff 3072, vocab 151,936 padded to 152,064; weights from a
+   seed), f32 compute: ServeEngine with 8 slots and max_len 512 serves
+   16 requests of 128-token prompts and 32 new tokens, each equal to
+   the naive greedy loop (prefill with prefill_pad, then decode_step)
+   up to a printed near-tie (the engine's cache is bf16, the loop's
+   f32); the loop's decode logits at step j equal ``forward``'s last
+   position over the prompt and j tokens within LM_FWD_TOL.  Then the
+   config's own bf16 compute, with prefill ms per request, decode ms
+   per step at 8 slots, tokens/s and peak device memory printed.  (c)
+   ``examples/activation_retrieval.py``'s path at full width: the f32
+   model's hidden states over 256 prompts of 64 tokens, 262,144
+   channel traces z-normalized and tSAX-encoded (T = 64, W = 16, A_tr =
+   A_res = 64, the bank's mean trend strength), exact
+   ``MatchEngine.topk`` at k = 1 and 8 for 8 query traces bitwise equal
+   to a K1 brute force, pruned fraction printed, K1 launches == rounds;
+   K4 at the encode shape and K1 at a round's shape against their plain
+   versions.
+10. Print each path's launch counts (each kernel of a path > 0) and the
+   ``{"kernels": [...]}`` line with the launches of all eight paths.
+11. Print the card's name and power limit, then the result line.
 
 It imports neither JAX nor the JAX package, needs the repository beside
 it, and exits nonzero without printing a result when there is no card.
@@ -185,6 +212,18 @@ NEUTRAL_BATCH = 4096          # verification batch of the sax/tsax/stsax
 #                               dispatches would take minutes)
 SJ_ROWS, SJ_SCAN_ROWS, SJ_CHUNK = 64, 16, 256  # self-join rows, chunk
 SELFJOIN_KERNELS = ("euclid", "ssax_dist", "paa")
+# the LM phase: parity of every architecture at reduced width (prefill,
+# LM_STEPS greedy decode steps, one engine wave), qwen3-0.6b served at
+# full width, and activation retrieval over its hidden states
+LM_ARCH, LM_SEED, LM_STEPS = "qwen3-0.6b", 0, 8
+LM_TOL = 1e-4                 # card vs CPU logits, f32, reduced width
+LM_WAVE = dict(requests=5, slots=2, max_len=64, new=5, lens=(4, 10))
+LM_SERVE = dict(slots=8, max_len=512, requests=16, prompt=128, new=32)
+LM_BF16_CACHE_TOL = 5e-2      # engine (bf16 cache) vs naive (f32 cache)
+LM_FWD_TOL = 1e-3             # decode logits vs forward's, f32 full width
+ACT = dict(prompts=256, T=64, W=16, A_tr=64, A_res=64, queries=8,
+           ks=(1, 8), batch=64, seed=11)
+LM_KERNELS = ("euclid", "paa")
 
 
 def fail(msg: str):
@@ -455,7 +494,7 @@ def check(name: str, got, want, tol: float) -> float:
         fail(f"{name}: shape {tuple(got.shape)} vs {tuple(want.shape)}")
     err = (got - want).abs()
     if not bool((err <= tol + tol * want.abs()).all()):
-        fail(f"{name}: kernel disagrees with its plain version "
+        fail(f"{name}: disagrees with its plain version or reference "
              f"(max abs err {float(err.max())}, tolerance {tol})")
     return float(err.max()) if err.numel() else 0.0
 
@@ -2097,6 +2136,403 @@ def serve_only(torch, np, ops, ref, dev):
     serving_path(torch, np, ops, ref, dev, D, engine.store, sub)
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the LM serving path and activation retrieval
+# ---------------------------------------------------------------------------
+
+def same_or_near_tie(name: str, got_tok, want_tok, got_row, want_row,
+                     tol: float) -> bool:
+    """Tokens equal: True.  Else a near-tie: the two logit rows agree
+    within ``tol`` and the wanted row's top-2 gap is within twice their
+    difference, so the difference decides the argmax; printed, False
+    (the two sequences part there).  Anything else fails."""
+    if got_tok == want_tok:
+        return True
+    diff = float((got_row.float() - want_row.float()).abs().max())
+    top = want_row.float().topk(2).values
+    gap = float(top[0] - top[1])
+    if diff > tol or gap > 2 * diff:
+        fail(f"{name}: token {got_tok} vs {want_tok}, logits differ by "
+             f"{diff:.3g} and the top-2 gap is {gap:.3g}: not a near-tie")
+    say(f"{name}: near-tie, token {got_tok} vs {want_tok}: top-2 logit gap "
+        f"{gap:.3g} within twice the logits' difference {diff:.3g}")
+    return False
+
+
+def lm_inputs(np, cfg, B: int, n: int, seed: int) -> dict:
+    """A prompt batch: ``n`` tokens per row, plus the stub frontends'
+    prefix embeddings / encoder frames where the config has them."""
+    rng = np.random.default_rng(seed)
+    b = {"tokens": rng.integers(0, cfg.vocab_size, (B, n)).astype(np.int32)}
+    if cfg.prefix_len:
+        b["prefix_embed"] = (0.5 * rng.standard_normal(
+            (B, cfg.prefix_len, cfg.d_model))).astype(np.float32)
+    if cfg.is_enc_dec:
+        b["encoder_frames"] = (0.5 * rng.standard_normal(
+            (B, cfg.encoder_seq, cfg.d_model))).astype(np.float32)
+    return b
+
+
+def greedy(torch, model, params, batch, steps: int):
+    """Prefill, then ``steps`` greedy decode steps: (tokens (B, steps + 1),
+    logits (B, steps + 1, V) on the host)."""
+    logits, cache = model.prefill(params, batch)
+    toks, rows = [torch.argmax(logits, -1)], [logits.float().cpu()]
+    for _ in range(steps):
+        logits, cache = model.decode_step(params, cache, toks[-1][:, None])
+        toks.append(torch.argmax(logits, -1))
+        rows.append(logits.float().cpu())
+    return torch.stack([t.cpu() for t in toks], 1), torch.stack(rows, 1)
+
+
+def engine_wave(np, model, params, cfg, seed: int):
+    """One ServeEngine wave of mixed-length prompts (LM_WAVE): the prompt
+    lengths and the token lists, in request order."""
+    from repro_torch.serving import Request, ServeEngine
+    rng = np.random.default_rng(seed)
+    reqs = [Request(rid=i, prompt=rng.integers(
+        0, cfg.vocab_size, int(rng.integers(*LM_WAVE["lens"]))).astype(
+            np.int32), max_new_tokens=LM_WAVE["new"])
+        for i in range(LM_WAVE["requests"])]
+    ServeEngine(model, params, n_slots=LM_WAVE["slots"],
+                max_len=LM_WAVE["max_len"]).run(list(reqs))
+    return [len(r.prompt) for r in reqs], [r.out_tokens for r in reqs]
+
+
+def lm_parity(torch, np, dev):
+    """Phase 9a: every architecture at ``reduced()`` width, f32, the same
+    weights on the card and on the CPU: prefill logits within LM_TOL, 8
+    greedy decode steps with equal tokens (up to a printed near-tie), and
+    one ServeEngine wave of mixed-length prompts with equal tokens."""
+    import dataclasses
+    from repro_torch.configs import ARCHITECTURES, get_config, reduced
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import RunConfig, tree_map
+    rc = RunConfig(q_chunk=8, kv_chunk=8, mamba_chunk=8, rwkv_chunk=8,
+                   loss_chunk=8, prefill_pad=64)
+    for i, arch in enumerate(ARCHITECTURES):
+        cfg = dataclasses.replace(reduced(get_config(arch)),
+                                  compute_dtype="float32")
+        cpu = build_model(cfg, rc=rc, device="cpu")
+        card = build_model(cfg, rc=rc, device=dev)
+        p_cpu = cpu.init(i)
+        p_card = tree_map(lambda a: a.to(dev), p_cpu)
+        batch = lm_inputs(np, cfg, 2, 24 - cfg.prefix_len, seed=i)
+        want_tok, want = greedy(torch, cpu, p_cpu, batch, LM_STEPS)
+        got_tok, got = greedy(torch, card, p_card, batch, LM_STEPS)
+        err = check(f"{arch} prefill logits", got[:, 0], want[:, 0], LM_TOL)
+        for b in range(2):
+            for j in range(LM_STEPS + 1):
+                err = max(err, check(f"{arch} row {b} step {j} logits",
+                                     got[b, j], want[b, j], LM_TOL))
+                if not same_or_near_tie(f"{arch} row {b} step {j}",
+                                        int(got_tok[b, j]),
+                                        int(want_tok[b, j]), got[b, j],
+                                        want[b, j], LM_TOL):
+                    break
+        wave = "skipped (the engine prefills tokens only)"
+        if not cfg.prefix_len and not cfg.is_enc_dec:
+            lens, w_cpu = engine_wave(np, cpu, p_cpu, cfg, seed=100 + i)
+            _, w_card = engine_wave(np, card, p_card, cfg, seed=100 + i)
+            if w_cpu != w_card:
+                fail(f"{arch}: ServeEngine wave tokens differ between the "
+                     f"card and the CPU: {w_card} vs {w_cpu}")
+            wave = (f"{LM_WAVE['requests']} prompts of {lens} tokens, "
+                    f"{sum(map(len, w_cpu))} tokens equal")
+        say(f"{arch} reduced: card == CPU, prefill + {LM_STEPS} decode "
+            f"logits max abs err {err:.3g} (tol {LM_TOL}); engine wave "
+            f"{wave}")
+
+
+class _LogitsLog:
+    """A model whose prefill / decode_step keep each call's logits on the
+    host; everything else is the model's."""
+
+    def __init__(self, model):
+        self._model = model
+        self.prefills, self.steps = [], []
+
+    def __getattr__(self, name):
+        return getattr(self._model, name)
+
+    def prefill(self, params, batch):
+        logits, cache = self._model.prefill(params, batch)
+        self.prefills.append(logits.float().cpu())
+        return logits, cache
+
+    def decode_step(self, params, cache, token):
+        logits, cache = self._model.decode_step(params, cache, token)
+        self.steps.append(logits.float().cpu())
+        return logits, cache
+
+
+def serve_timed(torch, eng, requests, log=None):
+    """Run ``requests`` through ``eng``: the wall time of the run and of
+    every admission (prefill, splice, first token) and decode step, each
+    of which ends in a host copy, so is synchronised.  With ``log`` (the
+    engine's model, a ``_LogitsLog``) also each request's logits rows:
+    its prefill's, then one per decode step."""
+    rows = {r.rid: [] for r in requests}
+    times = {"admit": [], "step": []}
+    admit, step = eng.admit, eng.step
+
+    def timed_admit(req):
+        t0 = time.perf_counter()
+        ok = admit(req)
+        if ok:
+            times["admit"].append(time.perf_counter() - t0)
+            if log is not None:
+                rows[req.rid].append(log.prefills[-1][0])
+        return ok
+
+    def timed_step():
+        slots = [r.rid if r is not None else None for r in eng.active]
+        if all(rid is None for rid in slots):
+            return step()
+        t0 = time.perf_counter()
+        step()
+        times["step"].append(time.perf_counter() - t0)
+        if log is not None:
+            for s, rid in enumerate(slots):
+                if rid is not None:
+                    rows[rid].append(log.steps[-1][s])
+
+    eng.admit, eng.step = timed_admit, timed_step
+    t0 = time.perf_counter()
+    eng.run(list(requests))
+    torch.cuda.synchronize()
+    times["run"] = time.perf_counter() - t0
+    return rows, times
+
+
+def lm_full_width(torch, np, dev):
+    """Phase 9b: qwen3-0.6b at full width, weights from a seed.  f32:
+    ServeEngine (8 slots, max_len 512) serves 16 requests of 128-token
+    prompts and 32 new tokens; each equals the naive greedy loop
+    (prefill with prefill_pad, then decode_step) up to a printed
+    near-tie, and the naive loop's logits at step j equal ``forward``'s
+    last position over the prompt and the j tokens so far.  Then bf16
+    compute (the config's own), timed.  Returns the f32 model and
+    weights for phase 9c."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import (
+        RunConfig, tree_leaves_with_path, unembed)
+    from repro_torch.serving import Request, ServeEngine
+    base = get_config(LM_ARCH)
+    cfg = dataclasses.replace(base, compute_dtype="float32")
+    model = build_model(cfg, device=dev)
+    t0 = time.perf_counter()
+    params = model.init(LM_SEED)
+    sync(torch, dev)
+    n_params = sum(v.numel() for _, v in tree_leaves_with_path(params))
+    say(f"{LM_ARCH}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size} (padded {cfg.padded_vocab}): "
+        f"{n_params:,} parameters (config count {cfg.param_counts()[0]:,}) "
+        f"made from seed {LM_SEED} on the card in "
+        f"{time.perf_counter() - t0:.2f} s")
+    if n_params != cfg.param_counts()[0]:
+        fail(f"{LM_ARCH}: {n_params} parameters, the config counts "
+             f"{cfg.param_counts()[0]}")
+
+    rng = np.random.default_rng(LM_SEED)
+    prompts = rng.integers(0, cfg.vocab_size,
+                           (LM_SERVE["requests"], LM_SERVE["prompt"])
+                           ).astype(np.int32)
+
+    def requests():
+        return [Request(rid=i, prompt=prompts[i],
+                        max_new_tokens=LM_SERVE["new"])
+                for i in range(len(prompts))]
+
+    log = _LogitsLog(model)
+    eng = ServeEngine(log, params, n_slots=LM_SERVE["slots"],
+                      max_len=LM_SERVE["max_len"])
+    reqs = requests()
+    rows, _ = serve_timed(torch, eng, reqs, log)
+    if any(len(r.out_tokens) != LM_SERVE["new"] or r.error for r in reqs):
+        fail(f"{LM_ARCH}: a request was not served in full")
+
+    naive = dataclasses.replace(model, rc=RunConfig(
+        prefill_pad=LM_SERVE["max_len"]))
+    t0 = time.perf_counter()
+    compared = ties = 0
+    fwd_err = max_diff = 0.0
+    head = unembed(params, cfg)
+    for r in reqs:
+        toks, logits = greedy(torch, naive, params,
+                              {"tokens": prompts[r.rid][None]},
+                              LM_SERVE["new"] - 1)
+        toks = toks[0].tolist()
+        for j, (got, want) in enumerate(zip(r.out_tokens, toks)):
+            max_diff = max(max_diff, float(
+                (rows[r.rid][j] - logits[0, j]).abs().max()))
+            compared += 1
+            if not same_or_near_tie(f"{LM_ARCH} request {r.rid} token {j}",
+                                    got, want, rows[r.rid][j], logits[0, j],
+                                    LM_BF16_CACHE_TOL):
+                ties += 1
+                break
+        if r.rid == 0:              # decode logits == forward over the text
+            seq = np.concatenate([prompts[0], np.asarray(toks[:-1],
+                                                         np.int32)])
+            for j in range(1, LM_SERVE["new"]):
+                h, _ = naive.hidden_states(
+                    params, {"tokens": seq[None, :LM_SERVE["prompt"] + j]})
+                full = (h[0, -1] @ head).float().cpu()
+                fwd_err = max(fwd_err, check(
+                    f"{LM_ARCH} decode step {j} vs forward", logits[0, j],
+                    full, LM_FWD_TOL))
+    say(f"{LM_ARCH} f32: ServeEngine ({LM_SERVE['slots']} slots, max_len "
+        f"{LM_SERVE['max_len']}, bf16 cache) served {len(reqs)} requests x "
+        f"{LM_SERVE['new']} tokens; {compared} tokens equal to the naive "
+        f"greedy loop (f32 cache), {ties} near-ties (logits differ by at "
+        f"most {max_diff:.3g}); request 0's decode logits == forward's "
+        f"last position within {LM_FWD_TOL} (max abs err {fwd_err:.3g}); "
+        f"naive loops {time.perf_counter() - t0:.1f} s")
+
+    # the config's own bf16 compute, timed (nothing logged)
+    bmodel = build_model(base, device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    resident = torch.cuda.memory_allocated(dev)
+    beng = ServeEngine(bmodel, params, n_slots=LM_SERVE["slots"],
+                       max_len=LM_SERVE["max_len"])
+    breqs = requests()
+    _, btimes = serve_timed(torch, beng, breqs)
+    peak = torch.cuda.max_memory_allocated(dev)
+    for r in breqs:
+        if len(r.out_tokens) != LM_SERVE["new"] or not all(
+                0 <= t < cfg.padded_vocab for t in r.out_tokens):
+            fail(f"{LM_ARCH} bf16: request {r.rid} malformed")
+    first = {"tokens": prompts[:2]}
+    b_logits, _ = bmodel.prefill(bmodel.compute_params(params), first)
+    f_logits, _ = model.prefill(params, first)
+    if not bool(b_logits.isfinite().all()):
+        fail(f"{LM_ARCH} bf16: non-finite prefill logits")
+    bf16_diff = float((b_logits.float() - f_logits).abs().max())
+    n_tok = sum(len(r.out_tokens) for r in breqs)
+    agree = sum(a == b for r, q in zip(breqs, reqs)
+                for a, b in zip(r.out_tokens, q.out_tokens))
+    timing = dict(
+        prefill_ms=1e3 * float(np.mean(btimes["admit"])),
+        decode_ms=1e3 * float(np.mean(btimes["step"])),
+        tokens_per_s=n_tok / btimes["run"], peak_gb=peak / 1e9,
+        resident_gb=resident / 1e9)
+    say(f"{LM_ARCH} bf16 ({card_label()}): prefill {timing['prefill_ms']:.2f}"
+        f" ms per request (admit: prefill, splice, first token; "
+        f"{LM_SERVE['prompt']}-token prompt), decode "
+        f"{timing['decode_ms']:.2f} ms per step at {LM_SERVE['slots']} "
+        f"slots, {timing['tokens_per_s']:.1f} tokens/s over the run "
+        f"({n_tok} tokens in {btimes['run']:.2f} s), peak device memory "
+        f"{timing['peak_gb']:.2f} GB ({timing['resident_gb']:.2f} GB "
+        f"allocated when it began: the f32 weights and engine, and what "
+        f"earlier phases still hold); "
+        f"{agree}/{n_tok} tokens equal to the f32 run's, prefill logits "
+        f"within {bf16_diff:.3g} of f32's")
+    del beng, bmodel
+    return model, params
+
+
+def activation_retrieval(torch, np, ops, ref, dev, model, params):
+    """Phase 9c: ``examples/activation_retrieval.py``'s path on the port at
+    full width: the f32 qwen3-0.6b's hidden states over 256 prompts of 64
+    tokens, 262,144 per-channel traces z-normalized and tSAX-encoded,
+    exact ``MatchEngine.topk`` at k = 1 and 8 for 8 query traces bitwise
+    equal to a K1 brute force; K4 at the encode shape and K1 at a round's
+    shape against their plain versions.  Returns the path's launch
+    counts and the kernels' max abs errors."""
+    from repro_torch.core import MatchEngine, TSAX, znormalize
+    from repro_torch.core.matching import RawStore
+    from repro_torch.core.tsax import trend_strength
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.match import kernel_bruteforce
+    P, Tn, d = ACT["prompts"], ACT["T"], model.cfg.d_model
+    rng = np.random.default_rng(ACT["seed"])
+    toks = rng.integers(0, model.cfg.vocab_size, (P + 1, Tn)).astype(np.int32)
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    traces = []
+    for lo in range(0, P + 1, ACT["batch"]):
+        h, _ = model.hidden_states(params, {"tokens": toks[lo:lo +
+                                                          ACT["batch"]]})
+        traces.append(h.transpose(1, 2).reshape(-1, Tn))   # (B*d, T)
+    traces = znormalize(torch.cat(traces))
+    bank_dev, q_dev = traces[:P * d], traces[P * d:P * d + ACT["queries"]]
+    strength = float(trend_strength(bank_dev).mean())
+    sync(torch, dev)
+    t_bank = time.perf_counter() - t0
+    bank, Q = bank_dev.cpu().numpy(), q_dev.cpu().numpy()
+    t0 = time.perf_counter()
+    enc = TSAX(T=Tn, W=ACT["W"], A_tr=ACT["A_tr"], A_res=ACT["A_res"],
+               r2_trend=strength)
+    engine = MatchEngine(enc, RawStore.hbm(bank), batch_size=BATCH,
+                         verify="kernel", device=dev)
+    sync(torch, dev)
+    t_enc = time.perf_counter() - t0
+    calls = []
+    for k in ACT["ks"]:
+        before = launch_counts()
+        t0 = time.perf_counter()
+        res = engine.topk(Q, k=k)
+        wall = time.perf_counter() - t0
+        calls.append((res, wall, {n: c - before[n] for n, c in
+                                  launch_counts().items()}))
+    counts = launch_counts()
+    say(f"activation retrieval: {bank.shape[0]:,} channel traces of "
+        f"length {Tn} from {P} prompts in {t_bank:.2f} s (mean trend "
+        f"strength {strength:.3f}); tSAX(W={ACT['W']}, A_tr={ACT['A_tr']}, "
+        f"A_res={ACT['A_res']}) engine built in {t_enc:.2f} s; launches "
+        f"{counts}")
+    rounds_check("activation retrieval", calls, exact_fetch=False)
+
+    bf_i, bf_d = kernel_bruteforce(Q, bank, max(ACT["ks"]), dev)
+    for (res, wall, c), k in zip(calls, ACT["ks"]):
+        if not (np.array_equal(res.indices, bf_i[:, :k]) and
+                np.array_equal(res.distances,
+                               bf_d[:, :k].astype(np.float64))):
+            fail(f"activation retrieval k={k}: exact top-k differs from "
+                 f"the K1 brute force")
+        say(f"activation retrieval k={k}: {len(Q)} queries == K1 brute "
+            f"force bitwise; pruned fraction "
+            f"{res.pruned_fraction.mean():.6f}, raw rows/query "
+            f"{res.raw_accesses.mean():.1f}, {res.rounds} rounds; topk wall "
+            f"{wall:.3f} s; launches {c}")
+
+    errs = {"paa": check("paa at the activation encode shape",
+                         ops.paa_segments(bank_dev, ACT["W"]),
+                         ref.paa_ref(bank_dev, ACT["W"]), TOL["paa"])}
+    say(f"kernel paa at the activation encode shape [{tuple(bank.shape)} "
+        f"-> W={ACT['W']}] == plain within {TOL['paa']}, max abs err "
+        f"{errs['paa']:.3g}")
+    errs["euclid"] = k1_on_path(torch, np, ops, ref, lambda ids: bank[ids],
+                                bank.shape[0], Q, BATCH, dev,
+                                "activation retrieval", seed=9)
+    return counts, errs
+
+
+def lm_path(torch, np, ops, ref, dev):
+    """Phase 9: parity of every architecture on the card, qwen3-0.6b served
+    at full width, and activation retrieval over its hidden states.
+    Returns the activation path's launch counts and kernel errors."""
+    t0 = time.perf_counter()
+    lm_parity(torch, np, dev)
+    say(f"phase 9a: ten architectures card == CPU "
+        f"({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    model, params = lm_full_width(torch, np, dev)
+    say(f"phase 9b: {LM_ARCH} served at full width "
+        f"({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    counts, errs = activation_retrieval(torch, np, ops, ref, dev, model,
+                                        params)
+    say(f"phase 9c: activation retrieval exact "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return counts, errs
+
+
 def rounds_check(path: str, calls, exact_fetch: bool):
     """One gathered K1 launch per verification round: every topk call's
     K1 launches must equal its rounds.  On whole series every round is
@@ -2170,7 +2606,8 @@ def main():
     _lib.load()
     say(f"phase 1: kernels built from {_lib.CSRC.relative_to(root)} in "
         f"{_lib.build_seconds():.1f} s -> {_lib.library_path().parent}")
-    if sys.argv[1:] in (["--k5"], ["--k2"], ["--split"], ["--serve"]):
+    if sys.argv[1:] in (["--k5"], ["--k2"], ["--split"], ["--serve"],
+                        ["--lm"]):
         if sys.argv[1] == "--k5":
             k5_shapes(torch, ops, ref, dev)
         elif sys.argv[1] == "--k2":
@@ -2178,6 +2615,10 @@ def main():
             k2_scaling(torch, ops, dev)
         elif sys.argv[1] == "--serve":
             serve_only(torch, np, ops, ref, dev)
+        elif sys.argv[1] == "--lm":
+            t0 = time.perf_counter()
+            lm_path(torch, np, ops, ref, dev)
+            say(f"phase 9: LM path exact ({time.perf_counter() - t0:.1f} s)")
         else:
             split_only(torch, np, dev)
         return
@@ -2218,13 +2659,20 @@ def main():
         rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], e)
     say(f"phase 8: serving path exact ({time.perf_counter() - t0:.1f} s)")
 
+    t0 = time.perf_counter()
+    lm_counts, lm_errs = lm_path(torch, np, ops, ref, dev)
+    for name, e in lm_errs.items():
+        rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], e)
+    say(f"phase 9: LM path exact ({time.perf_counter() - t0:.1f} s)")
+
     paths = (("main", counts, MAIN_KERNELS),
              ("index", idx_counts, MAIN_KERNELS),
              ("subsequence", sub_counts, tuple(sub_counts)),
              ("window index", win_counts, MAIN_KERNELS),
              ("device-resident", dev_counts, MAIN_KERNELS),
              ("service", svc_counts, MAIN_KERNELS),
-             ("self-join", sj_counts, SELFJOIN_KERNELS))
+             ("self-join", sj_counts, SELFJOIN_KERNELS),
+             ("activation retrieval", lm_counts, LM_KERNELS))
     for path, c, names in paths:
         missing = [n for n in names if c[n] <= 0]
         if missing:
@@ -2240,7 +2688,7 @@ def main():
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": r["library_ms"]})
-    say(f"phase 9: every kernel launched on its paths; total "
+    say(f"phase 10: every kernel launched on its paths; total "
         f"{time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
 
