@@ -7,6 +7,7 @@
     python3 chip_smoke.py --split  # build, then the main path's topk split
     python3 chip_smoke.py --serve  # build, then phase 8 alone
     python3 chip_smoke.py --lm     # build, then phase 9 alone
+    python3 chip_smoke.py --train  # build, then phase 10 alone
 
 Phases, each failing loudly with a nonzero exit:
 
@@ -156,9 +157,32 @@ Phases, each failing loudly with a nonzero exit:
    to a K1 brute force, pruned fraction printed, K1 launches == rounds;
    K4 at the encode shape and K1 at a round's shape against their plain
    versions.
-10. Print each path's launch counts (each kernel of a path > 0) and the
-   ``{"kernels": [...]}`` line with the launches of all eight paths.
-11. Print the card's name and power limit, then the result line.
+10. Drive the training path (``repro_torch.train``, ``optim``,
+   ``checkpoint``, ``launch/train.py``): (a) each of the ten
+   architectures at ``reduced()`` width in f32, one ``make_train_step``
+   from the same state on the card and the CPU: loss, grad_norm, the
+   moments and the parameters within TRAIN_TOL (``state_errors``), and
+   the card's step run twice from one state bitwise equal; a probe of
+   which scatter-adds (embedding and gather backwards, the MoE's
+   index_put_ / index_add_) are reproducible on the card, printed.  (b)
+   qwen3-0.6b at its published widths (596,180,992 parameters from a
+   seed), bf16 compute over f32 master weights and f32 moments,
+   ``train_loop`` for 30 steps of SyntheticLM batches of 8 x 512 tokens
+   under the cosine schedule: the loss must fall (mean of the last 5
+   steps below the first 5); step ms (median of warm steps), tokens/s
+   and peak device memory printed; then one batch from the trained
+   weights with microbatch=2 against 1 within TRAIN_MB_TOL and remat
+   off against on bitwise.  (c) ``train_loop`` at reduced width with a
+   ``Checkpointer`` and ``FailureInjector(fail_at=(3, 7))``: the final
+   state equals the unbroken run's bitwise, and its last checkpoint,
+   saved from the card, restores on the CPU to the same bits.  (d)
+   ``python -m repro_torch.launch.train --device cuda`` at reduced width
+   as a subprocess, with a checkpoint directory and an injected failure:
+   exit code 0.
+11. Print each path's launch counts (each kernel of a path > 0) and the
+   ``{"kernels": [...]}`` line with the launches of all eight paths
+   (the training path launches none of the five kernels).
+12. Print the card's name and power limit, then the result line.
 
 It imports neither JAX nor the JAX package, needs the repository beside
 it, and exits nonzero without printing a result when there is no card.
@@ -224,6 +248,17 @@ LM_FWD_TOL = 1e-3             # decode logits vs forward's, f32 full width
 ACT = dict(prompts=256, T=64, W=16, A_tr=64, A_res=64, queries=8,
            ks=(1, 8), batch=64, seed=11)
 LM_KERNELS = ("euclid", "paa")
+# the training phase: one step of every architecture at reduced width on
+# the card and the CPU, qwen3-0.6b trained at full width, replay after
+# failures, the launcher
+TRAIN_ARCH, TRAIN_SEED = "qwen3-0.6b", 0
+TRAIN_SMALL = dict(lr=1e-3)
+TRAIN_TOL = {"loss": 1e-5, "grad_norm": 1e-4, "moments": 1e-3,
+             "params": 1e-6, "params_any": 1.0}   # see state_errors
+TRAIN_FULL = dict(batch=8, seq=512, steps=30, warmup=10, lr=3e-4,
+                  warm_skip=2, rc=dict(q_chunk=512, kv_chunk=512,
+                                       loss_chunk=256))
+TRAIN_MB_TOL = 5e-2           # microbatch=2 vs 1, bf16: relative, in norm
 
 
 def fail(msg: str):
@@ -2533,6 +2568,410 @@ def lm_path(torch, np, ops, ref, dev):
     return counts, errs
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: LM training
+# ---------------------------------------------------------------------------
+
+def train_batch(np, data, cfg, step: int) -> dict:
+    """``data``'s batch for ``step``, plus the stub frontends' prefix
+    embeddings / encoder frames where the config has them."""
+    b = data.batch(step)
+    B = b["tokens"].shape[0]
+    rng = np.random.default_rng(1000 + step)
+    if cfg.prefix_len:
+        b["prefix_embed"] = (0.5 * rng.standard_normal(
+            (B, cfg.prefix_len, cfg.d_model))).astype(np.float32)
+    if cfg.is_enc_dec:
+        b["encoder_frames"] = (0.5 * rng.standard_normal(
+            (B, cfg.encoder_seq, cfg.d_model))).astype(np.float32)
+    return b
+
+
+def leaves_equal(torch, a, b) -> bool:
+    from repro_torch.models.transformer import tree_leaves_with_path
+    la, lb = tree_leaves_with_path(a), tree_leaves_with_path(b)
+    return [p for p, _ in la] == [p for p, _ in lb] and all(
+        x.dtype == y.dtype and torch.equal(x.cpu(), y.cpu())
+        for (_, x), (_, y) in zip(la, lb))
+
+
+def state_errors(torch, got, want, lr: float) -> dict:
+    """Card state against CPU state after one step: the moments' max abs
+    error over the leaf's max |want| (the gradients' agreement), the
+    parameters' max abs error where the gradient's rms (sqrt v) is above
+    1e-3 of the leaf's largest, and everywhere over 2 lr (an update is lr
+    x m / (sqrt(v) + 1e-8), which rounding moves by a part of lr only
+    where |g| is near 1e-8)."""
+    from repro_torch.models.transformer import tree_leaves_with_path
+    g = {p: a.cpu().float() for p, a in tree_leaves_with_path(got)}
+    w = {p: a.float() for p, a in tree_leaves_with_path(want)}
+    err = {"moments": 0.0, "params": 0.0, "params_any": 0.0}
+    for path, want_leaf in w.items():
+        diff = (g[path] - want_leaf).abs()
+        if path.startswith("['opt']"):
+            scale = max(float(want_leaf.abs().max()), 1e-30)
+            err["moments"] = max(err["moments"], float(diff.max()) / scale)
+        elif path.startswith("['params']"):
+            rms = w["['opt']['v']" + path[10:]].sqrt()
+            steady = rms > 1e-3 * rms.max()
+            if bool(steady.any()):
+                err["params"] = max(err["params"], float(diff[steady].max()))
+            err["params_any"] = max(err["params_any"],
+                                    float(diff.max()) / (2 * lr))
+    return err
+
+
+def train_parity(torch, np, dev):
+    """Phase 10a: each architecture at ``reduced()`` width in f32, the
+    same train state on the card and on the CPU (one seed), one
+    ``make_train_step`` each: loss, grad_norm and every updated leaf
+    within TRAIN_TOL; then the card's step run again from the same state
+    must give the same state bitwise (what phase 10c's replay needs)."""
+    import dataclasses
+    from repro_torch.configs import ARCHITECTURES, get_config, reduced
+    from repro_torch.data import LMDataConfig, SyntheticLM
+    from repro_torch.models.transformer import RunConfig, tree_map
+    from repro_torch.optim import AdamWConfig, cosine_schedule
+    from repro_torch.train import init_train_state, make_train_step
+    rc = RunConfig(q_chunk=8, kv_chunk=8, mamba_chunk=8, rwkv_chunk=8,
+                   loss_chunk=8)
+    lr = TRAIN_SMALL["lr"]
+    worst = {"loss": 0.0, "grad_norm": 0.0, "moments": 0.0, "params": 0.0,
+             "params_any": 0.0}
+    for i, arch in enumerate(ARCHITECTURES):
+        cfg = dataclasses.replace(reduced(get_config(arch)),
+                                  compute_dtype="float32")
+        data = SyntheticLM(LMDataConfig(
+            vocab_size=cfg.vocab_size, seq_len=24 - cfg.prefix_len,
+            global_batch=2, seed=i))
+        batch = train_batch(np, data, cfg, 0)
+        step = make_train_step(cfg, None, rc, AdamWConfig(lr=lr),
+                               schedule=lambda s: cosine_schedule(
+                                   s, warmup=2, total=10))
+        cpu = init_train_state(cfg, i, device="cpu")
+        cpu = step(cpu, batch)[0]      # a step in: moments nonzero
+        card = tree_map(lambda a: a.to(dev), cpu)
+        batch = train_batch(np, data, cfg, 1)
+        want, want_m = step(cpu, batch)
+        got, got_m = step(card, batch)
+        again, _ = step(card, batch)
+        errs = state_errors(torch, got, want, lr)
+        for k in ("loss", "grad_norm"):
+            errs[k] = abs(float(got_m[k]) - float(want_m[k])) / \
+                abs(float(want_m[k]))
+        for k, tol in TRAIN_TOL.items():
+            if not errs[k] <= tol:
+                fail(f"{arch} train step: card vs CPU {k} error {errs[k]:.3g}"
+                     f" above {tol}")
+            worst[k] = max(worst[k], errs[k])
+        if not leaves_equal(torch, again, got):
+            fail(f"{arch} train step: two runs from one state on the card "
+                 f"differ")
+        say(f"{arch} reduced train step: card == CPU (loss "
+            f"{float(got_m['loss']):.5f}, rel err {errs['loss']:.2g}; "
+            f"grad_norm rel err {errs['grad_norm']:.2g}; moments "
+            f"{errs['moments']:.2g} of the leaf max; params "
+            f"{errs['params']:.2g} abs where sqrt(v) > 1e-3 max, "
+            f"{errs['params_any']:.2g} x 2 lr anywhere); a second run "
+            f"from the same state bitwise equal")
+    say(f"phase 10a tolerances {TRAIN_TOL}, worst {worst}")
+
+
+def determinism_probe(torch, np, dev):
+    """Which of the step's scatter-adds are reproducible on the card: the
+    backward of an index into the embedding, of F.embedding, of the
+    loss's gather, and the MoE's index_put_ / index_add_ (top-2 and
+    top-8), each run three times on one input from SyntheticLM's Zipf
+    tokens at qwen3-0.6b's vocabulary and width.  Printed, not gated:
+    the gate is the whole step's (phase 10a) and the replay's (10c)."""
+    import torch.nn.functional as F
+    from repro_torch.data import LMDataConfig, SyntheticLM
+    V, d, T = 151_936, 1024, 4096
+    toks = SyntheticLM(LMDataConfig(vocab_size=V, seq_len=512,
+                                    global_batch=8)).batch(0)["tokens"]
+    idx = torch.as_tensor(toks.reshape(-1)).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    table = (0.02 * torch.randn(V, d, generator=gen, device=dev)).to(
+        torch.bfloat16)
+    up = torch.randn(T, d, generator=gen, device=dev)
+    logits = torch.randn(T, 4096, generator=gen, device=dev)
+    gold = (idx % 4096)[:, None]
+    rows = torch.randn(T * 8, d, generator=gen, device=dev)
+
+    def grad_of(fn, x, weight):
+        x = x.detach().requires_grad_(True)
+        (fn(x).float() * weight).sum().backward()
+        return x.grad
+
+    probes = {
+        "index backward (w[idx])": lambda: grad_of(
+            lambda w: w[idx], table, up),
+        "F.embedding backward": lambda: grad_of(
+            lambda w: F.embedding(idx, w), table, up),
+        "gather backward (loss)": lambda: grad_of(
+            lambda x: torch.gather(x, -1, gold), logits, 1.0),
+        "index_put_ accumulate (top-2)": lambda: torch.zeros(
+            T, d, device=dev).index_put_(
+                (torch.arange(T, device=dev).repeat_interleave(2),),
+                rows[:2 * T], accumulate=True),
+        "index_add_ (top-2)": lambda: torch.zeros(T, d, device=dev).index_add_(
+            0, torch.arange(T, device=dev).repeat_interleave(2), rows[:2 * T]),
+        "index_add_ (top-8)": lambda: torch.zeros(T, d, device=dev).index_add_(
+            0, torch.arange(T, device=dev).repeat_interleave(8), rows),
+    }
+    out = {}
+    for name, fn in probes.items():
+        first = fn()
+        out[name] = all(torch.equal(first, fn()) for _ in range(2))
+    say("determinism on the card (3 runs, bitwise): " + "; ".join(
+        f"{n} {'yes' if ok else 'NO'}" for n, ok in out.items()))
+    return out
+
+
+def train_full_width(torch, np, dev):
+    """Phase 10b: qwen3-0.6b at its published widths, weights from a seed:
+    bf16 compute over f32 master weights and f32 moments, SyntheticLM
+    batches of TRAIN_FULL's shape, ``train_loop`` for its steps under the
+    cosine schedule; the loss must fall.  Step ms (median of warm steps),
+    tokens/s and peak device memory printed.  Then from the trained
+    weights and zero moments (so the new m is 0.1 x the clipped
+    gradient) one batch with microbatch=2 against microbatch=1, and remat
+    off against on."""
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.data import LMDataConfig, SyntheticLM
+    from repro_torch.models.transformer import (RunConfig,
+                                                tree_leaves_with_path)
+    from repro_torch.optim import AdamWConfig, adamw_init, cosine_schedule
+    from repro_torch.train import init_train_state, make_train_step
+    from repro_torch.train.loop import train_loop
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev)
+    cfg = get_config(TRAIN_ARCH)
+    t0 = time.perf_counter()
+    state = init_train_state(cfg, TRAIN_SEED, device=dev)
+    sync(torch, dev)
+    n_params = sum(a.numel() for _, a in
+                   tree_leaves_with_path(state["params"]))
+    if n_params != cfg.param_counts()[0]:
+        fail(f"{TRAIN_ARCH}: {n_params} parameters, the config counts "
+             f"{cfg.param_counts()[0]}")
+    say(f"phase 10b: {held / 1e9:.2f} GB allocated on the card when it "
+        f"began; {TRAIN_ARCH} train state ({n_params:,} parameters, f32 "
+        f"master weights, f32 m and v) made from seed {TRAIN_SEED} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    B, S, n = TRAIN_FULL["batch"], TRAIN_FULL["seq"], TRAIN_FULL["steps"]
+    data = SyntheticLM(LMDataConfig(vocab_size=cfg.vocab_size, seq_len=S,
+                                    global_batch=B))
+    rc = RunConfig(**TRAIN_FULL["rc"])
+    opt = AdamWConfig(lr=TRAIN_FULL["lr"])
+    step = make_train_step(cfg, None, rc, opt, schedule=lambda s:
+                           cosine_schedule(s, warmup=TRAIN_FULL["warmup"],
+                                           total=n))
+    times = []
+    t0 = time.perf_counter()
+    state, hist = train_loop(
+        init_state_fn=lambda: state, train_step=step, batch_fn=data.batch,
+        n_steps=n, log_every=10,
+        metrics_cb=lambda s, m, dt: times.append(dt))
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    losses = hist["loss"]
+    if len(losses) != n or not all(np.isfinite(losses)):
+        fail(f"{TRAIN_ARCH} training: losses {losses}")
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    if not last < first:
+        fail(f"{TRAIN_ARCH} training: the loss did not fall (mean of the "
+             f"first 5 steps {first:.4f}, of the last 5 {last:.4f})")
+    step_s = float(np.median(times[TRAIN_FULL["warm_skip"]:]))
+    timing = dict(step_ms=1e3 * step_s, tokens_per_s=B * S / step_s,
+                  peak_gb=peak / 1e9, first_step_ms=1e3 * times[0])
+    say(f"{TRAIN_ARCH} training ({card_label()}): bf16 compute, f32 master "
+        f"weights and moments, batch {B} x {S} tokens, {n} steps in "
+        f"{wall:.2f} s; step {timing['step_ms']:.1f} ms (median of steps "
+        f"{TRAIN_FULL['warm_skip']}..{n - 1}; step 0 "
+        f"{timing['first_step_ms']:.1f} ms), {timing['tokens_per_s']:.0f} "
+        f"tokens/s, peak device memory {timing['peak_gb']:.2f} GB; loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f} (mean of the first 5 "
+        f"{first:.4f}, of the last 5 {last:.4f})")
+
+    timing.update(profile_steps(torch, dev, step, state, data, n, step_s))
+
+    params = state["params"]
+    del state
+    gc.collect()
+    batch = data.batch(n)
+
+    def grads(**over):
+        """(loss, grad_norm, {path: m}) of one step from zero moments."""
+        st = {"params": params, "opt": adamw_init(params),
+              "step": torch.zeros((), dtype=torch.int32, device=dev)}
+        new, m = make_train_step(cfg, None, RunConfig(
+            **{**TRAIN_FULL["rc"], **over}), opt)(st, batch)
+        moments = dict(tree_leaves_with_path(new["opt"]["m"]))
+        return float(m["loss"]), float(m["grad_norm"]), moments
+
+    base = grads()
+    t0 = time.perf_counter()
+    halves = grads(microbatch=2)
+    t_mb = time.perf_counter() - t0
+    mb_err = max(float((halves[2][p] - g).norm() / g.norm().clamp_min(1e-30))
+                 for p, g in base[2].items())
+    loss_err = abs(halves[0] - base[0]) / abs(base[0])
+    if not (mb_err <= TRAIN_MB_TOL and loss_err <= TRAIN_MB_TOL):
+        fail(f"{TRAIN_ARCH} microbatch=2 vs 1: loss rel err {loss_err:.3g}, "
+             f"gradient leaf rel err (norm) {mb_err:.3g} above "
+             f"{TRAIN_MB_TOL}")
+    del halves
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    flat = grads(remat=False)
+    t_flat = time.perf_counter() - t0
+    flat_peak = torch.cuda.max_memory_allocated(dev)
+    same = flat[0] == base[0] and flat[1] == base[1] and all(
+        torch.equal(flat[2][p], g) for p, g in base[2].items())
+    if not same:
+        fail(f"{TRAIN_ARCH}: remat off differs from remat on (loss "
+             f"{flat[0]} vs {base[0]})")
+    say(f"{TRAIN_ARCH} one batch from the trained weights: microbatch=2 vs "
+        f"1 loss rel err {loss_err:.3g}, gradient rel err (norm, worst "
+        f"leaf) {mb_err:.3g} (tol {TRAIN_MB_TOL}; bf16 products at other "
+        f"shapes round apart) in {t_mb:.2f} s; remat off == on bitwise "
+        f"(loss {base[0]:.6f}, grad_norm {base[1]:.6f}) in {t_flat:.2f} s, "
+        f"peak {flat_peak / 1e9:.2f} GB without remat")
+    return timing
+
+
+def profile_steps(torch, dev, step, state, data, n: int, step_s: float,
+                  reps: int = 1) -> dict:
+    """``reps`` more steps from ``state`` under ``torch.profiler``: the
+    card's busy time per step (the kernels' summed self time; one
+    stream, so they do not overlap) over the unprofiled median step, and
+    the operators that take most of it, printed."""
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if dev.type == "cuda" else [])
+    with profile(activities=acts) as prof:
+        for i in range(reps):
+            step(state, data.batch(n + 1 + i))
+        sync(torch, dev)
+    events = prof.key_averages()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or \
+            getattr(e, "self_cuda_time_total", 0)
+
+    # kernels (and copies) are the device's events; each operator's self
+    # device time is that of the kernels it launched itself
+    busy = sum(dev_us(e) for e in events
+               if e.device_type.name != "CPU") / reps / 1e3
+    top = sorted((e for e in events if e.device_type.name == "CPU"),
+                 key=dev_us, reverse=True)[:8]
+    say(f"{TRAIN_ARCH} step under torch.profiler ({reps} steps): card busy "
+        f"{busy:.1f} ms per step = {busy / (1e3 * step_s):.1%} of the "
+        f"median step (idle {1 - busy / (1e3 * step_s):.1%}); top: " +
+        "; ".join(f"{e.key} {dev_us(e) / reps / 1e3:.1f} ms"
+                  for e in top))
+    return {"busy_ms": busy}
+
+
+def train_fault_tolerance(torch, np, dev, root: Path):
+    """Phase 10c: ``train_loop`` at reduced width on the card, broken at
+    steps 3 and 7 and replayed from a ``Checkpointer`` every 2 steps,
+    must end on the unbroken run's state bitwise; its last checkpoint,
+    saved from the card, restored on the CPU equals that state."""
+    import dataclasses
+    import tempfile
+    from repro_torch.checkpoint import Checkpointer, restore_checkpoint
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.data import LMDataConfig, SyntheticLM
+    from repro_torch.models.transformer import RunConfig
+    from repro_torch.optim import AdamWConfig, cosine_schedule
+    from repro_torch.train import init_train_state, make_train_step
+    from repro_torch.train.loop import FailureInjector, train_loop
+    cfg = dataclasses.replace(reduced(get_config(TRAIN_ARCH)),
+                              compute_dtype="float32")
+    step = make_train_step(
+        cfg, None, RunConfig(q_chunk=16, kv_chunk=16, loss_chunk=16),
+        AdamWConfig(lr=TRAIN_SMALL["lr"]),
+        schedule=lambda s: cosine_schedule(s, warmup=2, total=10))
+    data = SyntheticLM(LMDataConfig(vocab_size=cfg.vocab_size, seq_len=32,
+                                    global_batch=4))
+    init = lambda: init_train_state(cfg, TRAIN_SEED, device=dev)
+    straight, _ = train_loop(init_state_fn=init, train_step=step,
+                             batch_fn=data.batch, n_steps=10, log_every=0)
+    (root / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=root / "build") as d:
+        broken, hist = train_loop(
+            init_state_fn=init, train_step=step, batch_fn=data.batch,
+            n_steps=10, checkpointer=Checkpointer(d, every=2),
+            failure_injector=FailureInjector(fail_at=(3, 7)), log_every=0)
+        if hist["restarts"] != 2 or len(hist["loss"]) != 12:
+            fail(f"fault tolerance: {hist['restarts']} restarts, "
+                 f"{len(hist['loss'])} steps run")
+        if not leaves_equal(torch, broken, straight):
+            fail("fault tolerance: the replayed run's state differs from "
+                 "the unbroken run's")
+        on_cpu, manifest = restore_checkpoint(
+            d, init_train_state(cfg, 1, device="cpu"), device="cpu")
+        if manifest["step"] != 10 or not leaves_equal(torch, on_cpu,
+                                                      broken):
+            fail("fault tolerance: the card's last checkpoint restored on "
+                 "the CPU differs from the card's state")
+    say(f"fault tolerance: {TRAIN_ARCH} reduced, 10 steps broken at 3 and 7,"
+        f" {hist['restarts']} restores from LATEST, 12 steps run: final "
+        f"state == the unbroken run's bitwise; its step-10 checkpoint "
+        f"restored on the CPU == the card's state bitwise")
+
+
+def train_launcher(root: Path):
+    """Phase 10d: ``python -m repro_torch.launch.train --device cuda`` at
+    reduced width as a subprocess, with a checkpoint directory and an
+    injected failure: exit code 0 and the reference's closing line."""
+    import os
+    import tempfile
+    (root / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=root / "build") as d:
+        cmd = [sys.executable, "-m", "repro_torch.launch.train", "--device",
+               "cuda", "--arch", TRAIN_ARCH, "--steps", "12", "--batch", "2",
+               "--seq", "32", "--ckpt-dir", d, "--ckpt-every", "4",
+               "--inject-failures", "6"]
+        env = dict(os.environ, PYTHONPATH=str(root / "src"))
+        t0 = time.perf_counter()
+        out = subprocess.run(cmd, cwd=root, env=env, capture_output=True,
+                             text=True, timeout=600)
+    lines = out.stdout.strip().splitlines()
+    if out.returncode or not lines or not lines[-1].startswith(
+            "final loss") or "restarts=1" not in lines[-1]:
+        fail(f"train launcher: exit {out.returncode}\n{out.stdout[-2000:]}"
+             f"\n{out.stderr[-2000:]}")
+    say(f"train launcher on the card: exit 0 in "
+        f"{time.perf_counter() - t0:.1f} s; {lines[0]}; {lines[-1]}")
+
+
+def train_path(torch, np, dev, root: Path):
+    """Phase 10: LM training.  Returns phase 10b's timing."""
+    t0 = time.perf_counter()
+    train_parity(torch, np, dev)
+    determinism_probe(torch, np, dev)
+    say(f"phase 10a: ten architectures' train steps card == CPU "
+        f"({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    timing = train_full_width(torch, np, dev)
+    say(f"phase 10b: {TRAIN_ARCH} trained at full width "
+        f"({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    train_fault_tolerance(torch, np, dev, root)
+    say(f"phase 10c: replay after failures exact "
+        f"({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    train_launcher(root)
+    say(f"phase 10d: train launcher ({time.perf_counter() - t0:.1f} s)")
+    return timing
+
+
 def rounds_check(path: str, calls, exact_fetch: bool):
     """One gathered K1 launch per verification round: every topk call's
     K1 launches must equal its rounds.  On whole series every round is
@@ -2607,7 +3046,7 @@ def main():
     say(f"phase 1: kernels built from {_lib.CSRC.relative_to(root)} in "
         f"{_lib.build_seconds():.1f} s -> {_lib.library_path().parent}")
     if sys.argv[1:] in (["--k5"], ["--k2"], ["--split"], ["--serve"],
-                        ["--lm"]):
+                        ["--lm"], ["--train"]):
         if sys.argv[1] == "--k5":
             k5_shapes(torch, ops, ref, dev)
         elif sys.argv[1] == "--k2":
@@ -2619,6 +3058,11 @@ def main():
             t0 = time.perf_counter()
             lm_path(torch, np, ops, ref, dev)
             say(f"phase 9: LM path exact ({time.perf_counter() - t0:.1f} s)")
+        elif sys.argv[1] == "--train":
+            t0 = time.perf_counter()
+            train_path(torch, np, dev, root)
+            say(f"phase 10: training path exact "
+                f"({time.perf_counter() - t0:.1f} s)")
         else:
             split_only(torch, np, dev)
         return
@@ -2665,6 +3109,10 @@ def main():
         rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], e)
     say(f"phase 9: LM path exact ({time.perf_counter() - t0:.1f} s)")
 
+    t0 = time.perf_counter()
+    train_path(torch, np, dev, root)
+    say(f"phase 10: training path exact ({time.perf_counter() - t0:.1f} s)")
+
     paths = (("main", counts, MAIN_KERNELS),
              ("index", idx_counts, MAIN_KERNELS),
              ("subsequence", sub_counts, tuple(sub_counts)),
@@ -2688,7 +3136,7 @@ def main():
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": r["library_ms"]})
-    say(f"phase 10: every kernel launched on its paths; total "
+    say(f"phase 11: every kernel launched on its paths; total "
         f"{time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
 

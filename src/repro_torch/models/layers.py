@@ -29,8 +29,42 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (
+    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts)
 
 F32 = torch.float32
+
+
+# ---------------------------------------------------------------------------
+# Activation checkpointing
+# ---------------------------------------------------------------------------
+
+# plain matrix products (no batch dims: ``x @ W`` folds to ``mm``); the
+# batched ones (attention's einsums, per-expert products) run as ``bmm``
+_DOTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.addmm.default})
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat(fn, *args, dots: bool = False):
+    """``fn(*args)``, under activation checkpointing where autograd
+    records: the forward keeps ``args`` (and with ``dots`` the outputs of
+    plain matrix products, the JAX package's
+    ``dots_with_no_batch_dims_saveable``) and the backward recomputes the
+    rest.  The recompute runs the same operations on the same values, so
+    it changes no value.  With autograd off (``torch.no_grad``, serving)
+    it is a plain call and costs nothing."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    ctx = {}
+    if dots:
+        ctx["context_fn"] = lambda: create_selective_checkpoint_contexts(
+            _save_dots)
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False, **ctx)
 
 
 # ---------------------------------------------------------------------------

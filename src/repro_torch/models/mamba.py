@@ -12,7 +12,8 @@ carried state.  PyTorch has no ``associative_scan``; the port composes
 the maps with a doubling (Hillis-Steele) scan, log2(chunk) vectorized
 steps.  It groups the products in another order than XLA's scan, so the
 two agree to f32 rounding, not bitwise (the tests hold them to rtol
-1e-4).
+1e-4).  Where autograd records, each chunk step is checkpointed
+(recomputed in backward), as the JAX package's ``jax.checkpoint``.
 
 Decode is a single recurrence step on carried (conv window, ssm state).
 Sharding is not part of this port yet: no sharding rules are taken.
@@ -22,6 +23,8 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.models.layers import remat
 
 F32 = torch.float32
 
@@ -47,6 +50,12 @@ def _ssm_scan_chunk(h0, dA, dBx):
     aA, aB = _doubling_scan(dA, dBx)
     h_all = aA * h0[:, None] + aB
     return h_all, h_all[:, -1]
+
+
+def _chunk_step(h, dA, dBx, Cm):
+    """One chunk of the training scan: (h_last, y (B, c, D))."""
+    h_all, h_last = _ssm_scan_chunk(h, dA, dBx)
+    return h_last, torch.einsum("bcdn,bcn->bcd", h_all, Cm)
 
 
 def mamba_mixer(p, x, cfg, *, state=None, chunk: int = 256,
@@ -99,9 +108,10 @@ def mamba_mixer(p, x, cfg, *, state=None, chunk: int = 256,
         assert S % c == 0
         h = torch.zeros((B, D, N), dtype=F32, device=x.device)
         ys = []
-        for lo in range(0, S, c):
-            h_all, h = _ssm_scan_chunk(h, dA[:, lo:lo + c], dBx[:, lo:lo + c])
-            ys.append(torch.einsum("bcdn,bcn->bcd", h_all, Cm[:, lo:lo + c]))
+        for lo in range(0, S, c):         # each chunk recomputed in backward
+            h, y_c = remat(_chunk_step, h, dA[:, lo:lo + c],
+                           dBx[:, lo:lo + c], Cm[:, lo:lo + c])
+            ys.append(y_c)
         y = torch.cat(ys, dim=1)
         new_state = None
         if collect_state:                      # prefill: decode-ready state

@@ -59,7 +59,7 @@ class Model:
     # -- forward --------------------------------------------------------
     def loss(self, params, batch):
         """batch: dict(tokens, labels[, prefix_embed, encoder_frames]).
-        The forward value only: the port does not train yet."""
+        Differentiable: ``train.step`` takes its gradients by autograd."""
         return T.lm_loss(params, self.cfg, self._batch(batch), self.rc)
 
     def hidden_states(self, params, batch):

@@ -9,15 +9,18 @@ The WKV recurrence per head (hd = head dim):
 with w_t in (0,1) the *data-dependent* per-channel decay (the paper's Finch
 contribution) and u the learned "bonus" for the current token.  Like the
 mamba block, train/prefill runs an outer chunk loop with a sequential
-inner loop over the chunk's steps (the JAX package's ``lax.scan``);
-decode is a single step on the carried (shift, wkv-state).  Sharding is
-not part of this port yet: no sharding rules are taken.
+inner loop over the chunk's steps (the JAX package's ``lax.scan``),
+each chunk checkpointed where autograd records, as there; decode is a
+single step on the carried (shift, wkv-state).  Sharding is not part of
+this port yet: no sharding rules are taken.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.models.layers import remat
 
 F32 = torch.float32
 
@@ -87,10 +90,10 @@ def rwkv_time_mix(p, x, cfg, *, state=None, chunk: int = 256,
         assert S % c == 0
         s = torch.zeros((B, H, hd, hd), dtype=F32, device=x.device)
         ys = []
-        for lo in range(0, S, c):
+        for lo in range(0, S, c):         # each chunk recomputed in backward
             sl = slice(lo, lo + c)
-            y_c, s = _wkv_chunk_scan(s, rf[:, sl], kf[:, sl], vf[:, sl],
-                                     w[:, sl], u)
+            y_c, s = remat(_wkv_chunk_scan, s, rf[:, sl], kf[:, sl],
+                           vf[:, sl], w[:, sl], u)
             ys.append(y_c)
         y = torch.cat(ys, dim=1)
         new_state = None

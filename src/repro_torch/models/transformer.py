@@ -23,6 +23,7 @@ from typing import Callable
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ATTN, MAMBA, RWKV, LayerSpec, ModelConfig
 from repro_torch.models import layers as L
@@ -85,6 +86,17 @@ def tree_leaves_with_path(tree, is_leaf=None) -> list:
 def _at(tree, r: int):
     """Layer ``r`` of a stacked (R, ...) tree: views, no copies."""
     return tree_map(lambda a: a[r], tree)
+
+
+def _unstack(tree, n: int) -> list:
+    """The ``n`` layers of a stacked (R, ...) tree, each leaf unbound once
+    (views, no copies): autograd then stacks the layers' gradients in
+    one copy, where indexing each layer would add a zero-padded (R, ...)
+    gradient per layer."""
+    parts = tree_map(lambda a: a.unbind(0), tree)
+    is_parts = lambda x: isinstance(x, tuple)
+    return [tree_map(lambda t: t[r], parts, is_leaf=is_parts)
+            for r in range(n)]
 
 
 # ---------------------------------------------------------------------------
@@ -346,9 +358,20 @@ def _cast_leaves(name, node, dt):
 
 @dataclass(frozen=True)
 class RunConfig:
-    """The JAX package's execution knobs.  ``remat``, ``remat_policy`` and
-    ``microbatch`` concern the backward pass and do nothing until the
-    port trains."""
+    """The JAX package's execution knobs.  Three concern the backward
+    pass and act only where autograd records (``train.step``), never
+    under ``torch.no_grad``:
+
+    * ``remat``: :func:`forward` checkpoints each repeat of the
+      super-block (and :func:`encode` each encoder layer), keeping only
+      its input and recomputing the rest in backward;
+    * ``remat_policy``: ``"full"`` recomputes everything, ``"dots"``
+      also keeps the outputs of plain matrix products (``layers.remat``);
+    * ``microbatch``: ``train.step.make_train_step`` splits the batch
+      into this many pieces and carries their mean gradient in f32.
+
+    The loss's cross-entropy chunks and the Mamba and RWKV chunk steps are
+    checkpointed whatever ``remat`` says, as in the JAX package."""
     q_chunk: int = 512
     kv_chunk: int = 1024
     mamba_chunk: int = 256
@@ -466,9 +489,8 @@ def encode(params, cfg: ModelConfig, frames, rc: RunConfig):
     positions = torch.arange(Fr, device=frames.device)
     x = frames + L.sinusoidal_embedding(positions, d)[None].to(frames.dtype)
     enc_spec = LayerSpec(kind=ATTN)
-    blocks = params["blocks"][0]
-    for r in range(cfg.n_encoder_layers):
-        bp = _at(blocks, r)
+
+    def body(x, bp):
         h = L.rms_norm(x, bp["norm_mix"], cfg.norm_eps)
         mix, _ = L.attention_layer(
             bp["mix"], h, cfg, enc_spec, positions=positions,
@@ -476,7 +498,10 @@ def encode(params, cfg: ModelConfig, frames, rc: RunConfig):
             kv_chunk=pick_chunk(Fr, rc.kv_chunk))
         x = x + mix
         h = L.rms_norm(x, bp["norm_mlp"], cfg.norm_eps)
-        x = x + L.swiglu_mlp(bp["mlp"], h)
+        return x + L.swiglu_mlp(bp["mlp"], h)
+
+    for bp in _unstack(params["blocks"][0], cfg.n_encoder_layers):
+        x = L.remat(body, x, bp) if rc.remat else body(x, bp)
     return L.rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 
@@ -485,7 +510,12 @@ def encode(params, cfg: ModelConfig, frames, rc: RunConfig):
 # ---------------------------------------------------------------------------
 
 def embed_tokens(params, cfg, tokens, dtype):
-    return params["embed"].to(dtype)[tokens]
+    # the backward sums each row's repeats in one fixed order (F.embedding
+    # sorts, then sums segments), so a replayed step reproduces it bitwise
+    return F.embedding(tokens, params["embed"].to(dtype))
+
+
+_AUX = ("load_balance", "router_z", "dropped_frac")
 
 
 def forward(params, cfg: ModelConfig, tokens, *, rc: RunConfig,
@@ -512,19 +542,31 @@ def forward(params, cfg: ModelConfig, tokens, *, rc: RunConfig,
                              rc)
         x = x + L.sinusoidal_embedding(positions, d)[None].to(dt)
 
-    aux = {n: torch.zeros((), dtype=F32, device=dev)
-           for n in ("load_balance", "router_z", "dropped_frac")}
+    aux = tuple(torch.zeros((), dtype=F32, device=dev) for _ in _AUX)
+    layers = [_unstack(b, cfg.pattern_repeats) for b in params["blocks"]]
 
     # the pattern repeats in order; each applies the whole super-block in
     # pattern order (gemma3: 5 local + 1 global; jamba: 1 attn + 7 mamba)
-    caches = [[] for _ in cfg.pattern]
-    for r in range(cfg.pattern_repeats):
+    def superblock(r, x, *aux):
+        aux = dict(zip(_AUX, aux))
+        outs = []
         for i, spec in enumerate(cfg.pattern):
             x, cache_out = apply_block(
-                _at(params["blocks"][i], r), x, cfg, spec, rc,
-                positions=positions, encoder_out=encoder_out, aux=aux,
-                collect=collect_cache)
-            caches[i].append(cache_out)
+                layers[i][r], x, cfg, spec, rc, positions=positions,
+                encoder_out=encoder_out, aux=aux, collect=collect_cache)
+            outs.append(cache_out)
+        return x, tuple(aux[n] for n in _AUX), outs
+
+    caches = [[] for _ in cfg.pattern]
+    for r in range(cfg.pattern_repeats):
+        if rc.remat and not collect_cache:
+            x, aux, outs = L.remat(superblock, r, x, *aux,
+                                   dots=rc.remat_policy == "dots")
+        else:
+            x, aux, outs = superblock(r, x, *aux)
+        for i, c in enumerate(outs):
+            caches[i].append(c)
+    aux = dict(zip(_AUX, aux))
 
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     if not collect_cache:
@@ -536,13 +578,24 @@ def forward(params, cfg: ModelConfig, tokens, *, rc: RunConfig,
 
 
 # ---------------------------------------------------------------------------
-# Loss (chunked cross-entropy; forward value only)
+# Loss (chunked cross-entropy, each chunk checkpointed)
 # ---------------------------------------------------------------------------
 
 def unembed(params, cfg):
     if cfg.tie_embeddings:
         return params["embed"].T      # (d, V)
     return params["lm_head"]
+
+
+def _ce_chunk(xi, yi, head):
+    """(summed cross-entropy, label count) of one chunk; labels < 0 are
+    masked."""
+    logits = (xi @ head).float()                      # (B, cs, V)
+    lse = torch.logsumexp(logits, dim=-1)
+    safe = torch.clamp_min(yi, 0)
+    gold = torch.gather(logits, -1, safe[..., None].long())[..., 0]
+    mask = (yi >= 0).float()
+    return ((lse - gold) * mask).sum(), mask.sum()
 
 
 def lm_loss(params, cfg: ModelConfig, batch, rc: RunConfig):
@@ -565,15 +618,13 @@ def lm_loss(params, cfg: ModelConfig, batch, rc: RunConfig):
     cs = pick_chunk(S, rc.loss_chunk)
     tot = torch.zeros((), dtype=F32, device=x.device)
     cnt = torch.zeros((), dtype=F32, device=x.device)
+    # each chunk's (B, cs, V) f32 logits live only inside the chunk: the
+    # backward recomputes them (the JAX package's jax.checkpoint(ce_chunk))
     for lo in range(0, S, cs):
-        xi, yi = x[:, lo:lo + cs], labels[:, lo:lo + cs]
-        logits = (xi @ head).float()                  # (B, cs, V)
-        lse = torch.logsumexp(logits, dim=-1)
-        safe = torch.clamp_min(yi, 0)
-        gold = torch.gather(logits, -1, safe[..., None].long())[..., 0]
-        mask = (yi >= 0).float()
-        tot = tot + ((lse - gold) * mask).sum()
-        cnt = cnt + mask.sum()
+        t, c = L.remat(_ce_chunk, x[:, lo:lo + cs], labels[:, lo:lo + cs],
+                       head)
+        tot = tot + t
+        cnt = cnt + c
     ce = tot / torch.clamp_min(cnt, 1.0)
     loss = ce
     if cfg.n_experts:

@@ -158,3 +158,31 @@ def test_chip_smoke_alone_fails_without_result(tmp_path):
                          capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_train_launcher_defaults_to_the_card():
+    """The training launcher keeps its state on ``--device`` (cuda by
+    default): without a card it raises, never falling back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default runs there")
+    from repro_torch.launch.train import main
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["--steps", "1", "--batch", "2", "--seq", "16"])
+
+
+def test_train_state_defaults_to_the_card():
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models.transformer import tree_leaves_with_path
+    from repro_torch.train import init_train_state, train_state_from_reference
+    cfg = reduced(get_config("qwen3-0.6b"))
+    if torch.cuda.is_available():
+        st = init_train_state(cfg, 0)
+        assert {a.device.type for _, a in tree_leaves_with_path(st)} == \
+            {"cuda"}
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            init_train_state(cfg, 0)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            train_state_from_reference(cfg, {})
+    st = init_train_state(cfg, 0, device="cpu")
+    assert {a.device.type for _, a in tree_leaves_with_path(st)} == {"cpu"}
