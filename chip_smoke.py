@@ -8,6 +8,7 @@
     python3 chip_smoke.py --serve  # build, then phase 8 alone
     python3 chip_smoke.py --lm     # build, then phase 9 alone
     python3 chip_smoke.py --train  # build, then phase 10 alone
+    python3 chip_smoke.py --shard  # build, then phase 11 alone
 
 Phases, each failing loudly with a nonzero exit:
 
@@ -179,10 +180,38 @@ Phases, each failing loudly with a nonzero exit:
    ``python -m repro_torch.launch.train --device cuda`` at reduced width
    as a subprocess, with a checkpoint directory and an injected failure:
    exit code 0.
-11. Print each path's launch counts (each kernel of a path > 0) and the
+11. Drive sharded training (``sharding``, ``train.step`` with rules,
+   ``checkpoint.elastic``, ``launch/dryrun.py``): (a) ``python -m
+   torch.distributed.run --standalone --nproc-per-node 1 -m
+   repro_torch.launch.train --scale full`` for qwen3-0.6b at its
+   published widths as a subprocess (NCCL, a world of one, the sharded
+   step on a (1, 1) mesh) with a checkpoint directory: exit 0, and its
+   per-step losses equal to an unsharded ``make_train_step(cfg, None,
+   ...)`` replay here with the launcher's own RunConfig, optimizer,
+   schedule, seed and SyntheticLM batches (bitwise expected; otherwise
+   the largest difference is printed and held to TRAIN_TOL); step ms and
+   peak memory of both, and phase 10b's where it ran.  (b) In a world of
+   one here: the dry-run's per-device state bytes for qwen3-0.6b equal
+   the bytes of the shards ``shard_train_state`` places on the card
+   (3 x 4 x 596,180,992 B plus the step), the allocation's growth within
+   each leaf's rounding to 512 B; the dry-run's FLOPs per step beside
+   the step ms.  (c) (a)'s last checkpoint, the launcher's final state,
+   bitwise equal to the unsharded replay's final state, and
+   ``elastic_restore`` of it onto the card's mesh bitwise equal to the
+   same (so to the file); ``reshard_checkpoint`` with a changed model
+   axis raises.  (d) olmoe-1b-7b and jamba-1.5-large at
+   ``reduced()`` width in f32 with ``moe_groups = 4``: the grouped MoE
+   forward and one sharded train step on the card against the CPU within
+   TRAIN_TOL, and the grouped forward against the ungrouped at capacity
+   factor 64 within SHARD_MOE_TOL.  (e) The dry-run CLI as two
+   subprocesses beside (b)-(d) (host work only), on smollm-135m's four
+   cells (train_4k, prefill_32k, decode_32k, and long_500k's documented
+   skip) and jamba-1.5-large's long_500k, single pod: the counts line,
+   0 errors, seconds printed.
+12. Print each path's launch counts (each kernel of a path > 0) and the
    ``{"kernels": [...]}`` line with the launches of all eight paths
-   (the training path launches none of the five kernels).
-12. Print the card's name and power limit, then the result line.
+   (the training paths launch none of the five kernels).
+13. Print the card's name and power limit, then the result line.
 
 It imports neither JAX nor the JAX package, needs the repository beside
 it, and exits nonzero without printing a result when there is no card.
@@ -259,6 +288,17 @@ TRAIN_FULL = dict(batch=8, seq=512, steps=30, warmup=10, lr=3e-4,
                   warm_skip=2, rc=dict(q_chunk=512, kv_chunk=512,
                                        loss_chunk=256))
 TRAIN_MB_TOL = 5e-2           # microbatch=2 vs 1, bf16: relative, in norm
+# the sharded-training phase: the launcher under torch.distributed.run at
+# qwen3-0.6b's full width (one rank), replayed unsharded; the accounting's
+# state bytes against the card's; elastic restore; the grouped MoE; the
+# dry-run's CLI on one cell of each mode
+SHARD = dict(steps=4, batch=8, seq=512, warm_skip=1, moe_groups=4)
+SHARD_MOE = ("olmoe-1b-7b", "jamba-1.5-large-398b")
+SHARD_MOE_TOL = dict(rtol=2e-2, atol=2e-3)   # grouped vs ungrouped
+SHARD_DRYRUN = (("smollm-135m", "all", "3 ok, 1 documented skips, 0 "
+                 "errors"),
+                ("jamba-1.5-large-398b", "long_500k",
+                 "1 ok, 0 documented skips, 0 errors"))
 
 
 def fail(msg: str):
@@ -2972,6 +3012,355 @@ def train_path(torch, np, dev, root: Path):
     return timing
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: sharded training and its accounting
+# ---------------------------------------------------------------------------
+
+def shard_argv(d: Path) -> list:
+    """The launcher's arguments for phase 11a: qwen3-0.6b at full width,
+    one checkpoint at the end, per-step metrics into ``d``."""
+    return ["--scale", "full", "--arch", TRAIN_ARCH, "--device", "cuda",
+            "--steps", str(SHARD["steps"]), "--batch", str(SHARD["batch"]),
+            "--seq", str(SHARD["seq"]), "--ckpt-dir", str(d / "ckpt"),
+            "--ckpt-every", str(10 * SHARD["steps"]), "--metrics-out",
+            str(d / "metrics.json")]
+
+
+def shard_launcher(torch, root: Path, d: Path) -> dict:
+    """Phase 11a, first half: the launcher under ``torch.distributed.run``
+    with one rank on the card.  Returns its metrics."""
+    import gc
+    import os
+    gc.collect()
+    torch.cuda.empty_cache()          # the subprocess needs the card's memory
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", "1", "-m", "repro_torch.launch.train",
+           *shard_argv(d)]
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, cwd=root, env=env, capture_output=True,
+                         text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    lines = out.stdout.strip().splitlines()
+    if out.returncode or not lines or not lines[-1].startswith("final loss"):
+        fail(f"sharded launcher: exit {out.returncode}\n"
+             f"{out.stdout[-2000:]}\n{out.stderr[-3000:]}")
+    with open(d / "metrics.json") as f:
+        m = json.load(f)
+    if len(m["loss"]) != SHARD["steps"]:
+        fail(f"sharded launcher: {len(m['loss'])} losses")
+    say(f"sharded launcher (torch.distributed.run, 1 rank, NCCL, (1, 1) "
+        f"mesh): exit 0 in {wall:.1f} s; {lines[0]}; {lines[-1]}")
+    return m
+
+
+def shard_replay(torch, np, dev, d: Path, launched: dict, p10) -> dict:
+    """Phase 11a, second half: the launcher's run unsharded here, with its
+    own RunConfig, optimizer, schedule, seed and batches; the per-step
+    losses must equal the launcher's.  Returns the final state."""
+    from repro_torch.launch.train import parse, setup
+    from repro_torch.train import init_train_state, make_train_step
+    run = setup(parse(shard_argv(d)))
+    step = make_train_step(run["cfg"], None, run["rc"], run["opt"],
+                           schedule=run["schedule"],
+                           compression=run["compression"])
+    torch.cuda.reset_peak_memory_stats(dev)
+    state = init_train_state(run["cfg"], run["seed"], device=dev)
+    losses, times = [], []
+    for i in range(SHARD["steps"]):
+        t0 = time.perf_counter()
+        state, m = step(state, run["data"].batch(i))
+        losses.append(float(m["loss"]))        # syncs with the card
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated(dev)
+    got = launched["loss"]
+    worst = max(abs(a - b) / abs(b) for a, b in zip(got, losses))
+    if got != losses:
+        say(f"sharded vs unsharded losses differ: largest relative "
+            f"difference {worst:.3g} (launcher {got}, replay {losses})")
+        if not worst <= TRAIN_TOL["loss"]:
+            fail(f"sharded launcher's losses {got} vs unsharded {losses}")
+    w = SHARD["warm_skip"]
+    sh_ms = 1e3 * float(np.median(launched["step_s"][w:]))
+    un_ms = 1e3 * float(np.median(times[w:]))
+    p10_text = (f"phase 10b {p10['step_ms']:.1f} ms, peak "
+                f"{p10['peak_gb']:.2f} GB (q_chunk 512)" if p10 else
+                "phase 10b not run in this invocation")
+    say(f"{TRAIN_ARCH} {SHARD['batch']} x {SHARD['seq']} tokens, "
+        f"{SHARD['steps']} steps ({card_label()}): sharded losses "
+        f"{'==' if got == losses else '~='} unsharded "
+        f"{'bitwise' if got == losses else f'(worst {worst:.3g})'} "
+        f"({losses[0]:.6f} -> {losses[-1]:.6f}); step ms (median of steps "
+        f"{w}..{SHARD['steps'] - 1}) sharded {sh_ms:.1f}, unsharded "
+        f"{un_ms:.1f}; peak device memory sharded "
+        f"{launched['peak_bytes'] / 1e9:.2f} GB, unsharded "
+        f"{peak / 1e9:.2f} GB; {p10_text}")
+    return {"state": state, "step_ms": sh_ms, "cfg": run["cfg"],
+            "rc": run["rc"]}
+
+
+def shard_accounting(torch, dev, mesh, replay: dict):
+    """Phase 11b: the dry-run's per-device state bytes equal the shards
+    ``shard_train_state`` places on the card; its FLOPs per step beside
+    the step ms."""
+    import gc
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.dryrun import account, state_bytes
+    from repro_torch.launch.mesh import MeshSpec
+    from repro_torch.models.transformer import tree_leaves_with_path
+    from repro_torch.sharding import ShardingRules
+    from repro_torch.train import init_train_state
+    from repro_torch.train.state import shard_train_state
+    cfg = replay["cfg"]
+    rules = ShardingRules.for_mesh(mesh)
+    want = state_bytes(cfg, rules)
+    n = cfg.param_counts()[0]
+    if want["params"] + want["opt"] != 3 * 4 * n:
+        fail(f"accounting: params + m + v {want} != 3 x 4 x {n}")
+    full = init_train_state(cfg, TRAIN_SEED, device="cpu")
+    gc.collect()
+    sync(torch, dev)
+    before = torch.cuda.memory_allocated(dev)
+    state = shard_train_state(full, cfg, rules)
+    sync(torch, dev)
+    grown = torch.cuda.memory_allocated(dev) - before
+    leaves = [a.to_local() for _, a in tree_leaves_with_path(state)]
+    held = sum(a.untyped_storage().nbytes() for a in leaves)
+    rounded = sum(-(-a.untyped_storage().nbytes() // 512) * 512
+                  for a in leaves)
+    if held != sum(want.values()) or not held <= grown <= rounded:
+        fail(f"accounting: predicted {want} ({sum(want.values())} B), "
+             f"shards hold {held} B, allocation grew {grown} B (rounded "
+             f"leaves {rounded} B)")
+    del state, full, leaves
+    shape = ShapeSpec("shard", SHARD["seq"], SHARD["batch"], "train")
+    acc = account(cfg, shape, ShardingRules.for_mesh(
+        MeshSpec(("data", "model"), (1, 1))), replay["rc"])
+    flops = acc["flops_per_dev"]
+    say(f"accounting, {TRAIN_ARCH} on a (1, 1) mesh: predicted state "
+        f"{sum(want.values()):,} B (params {want['params']:,} + m, v "
+        f"{want['opt']:,} + step {want['step']}; params + m + v = 3 x 4 x "
+        f"{n:,} = {3 * 4 * n:,}) == the shards' storage {held:,} B; "
+        f"allocation grew {grown:,} B (<= {rounded:,} with each leaf "
+        f"rounded to 512 B); FLOPs per step {flops:.4g} (the matmuls of "
+        f"forward, remat recompute and backward), {flops / 1e12 / (replay['step_ms'] / 1e3):.1f} "
+        f"TFLOP/s at the sharded step's {replay['step_ms']:.1f} ms; "
+        f"collectives {acc['collectives']['count']} (a world of one)")
+
+
+def shard_elastic(torch, np, mesh, d: Path, replay: dict):
+    """Phase 11c: the launcher's last checkpoint (its final state) equals
+    the unsharded replay's final state bitwise, leaf by leaf as the file
+    holds it; ``elastic_restore`` of it onto the card's mesh equals the
+    replay's state bitwise too, so the file; a changed model axis is
+    refused.  Either miss fails."""
+    from repro_torch.checkpoint.ckpt import BF16_WORD, latest_step
+    from repro_torch.checkpoint.elastic import (elastic_restore,
+                                                reshard_checkpoint)
+    from repro_torch.launch.mesh import MeshSpec
+    from repro_torch.models.transformer import tree_leaves_with_path
+    from repro_torch.train.state import abstract_train_state
+    cfg = replay["cfg"]
+    ck = str(d / "ckpt")
+    step = latest_step(ck)
+    if step != SHARD["steps"]:
+        fail(f"elastic: the launcher's last checkpoint is step {step}")
+    want = dict(tree_leaves_with_path(replay["state"]))
+    npz = d / "ckpt" / f"step_{step:08d}" / "shard_h000.npz"
+    with np.load(npz) as z:
+        if set(z.files) != set(want):
+            fail(f"elastic: the file's leaves {sorted(z.files)[:4]}... vs "
+                 f"the state's")
+        for path, a in want.items():
+            arr, local = z[path], a.cpu()
+            if arr.dtype == BF16_WORD:
+                arr, local = arr.view(np.int16), local.view(torch.int16)
+            if not np.array_equal(local.numpy(), arr):
+                fail(f"elastic: the launcher's final {path} differs from "
+                     f"the unsharded replay's")
+    t0 = time.perf_counter()
+    restored, manifest = elastic_restore(ck, cfg, mesh,
+                                         abstract_train_state(cfg))
+    t_restore = time.perf_counter() - t0
+    if manifest["step"] != step:
+        fail(f"elastic: restored step {manifest['step']}")
+    for path, a in tree_leaves_with_path(restored):
+        if not torch.equal(a.to_local(), want[path]):
+            fail(f"elastic: the restored {path} differs from the file")
+    try:
+        reshard_checkpoint(ck, cfg, MeshSpec(("data", "model"), (1, 1)),
+                           MeshSpec(("data", "model"), (1, 2)),
+                           abstract_train_state(cfg))
+        fail("elastic: a changed model axis was not refused")
+    except ValueError:
+        pass
+    say(f"the launcher's step-{step} checkpoint == the unsharded replay's "
+        f"final state bitwise; elastic restore of it onto the card's mesh "
+        f"in {t_restore:.1f} s == the file bitwise; a changed model axis "
+        f"refused (ValueError)")
+
+
+def shard_moe(torch, np, dev, mesh, cpu_mesh):
+    """Phase 11d: the grouped MoE (moe_groups = 4) forward and one sharded
+    train step on the card against the CPU, and grouped against
+    ungrouped at a generous capacity."""
+    import dataclasses
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.data import LMDataConfig, SyntheticLM
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import RunConfig, tree_map
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.sharding import ShardingRules
+    from repro_torch.train import init_train_state, make_train_step
+    from repro_torch.train.state import shard_train_state
+    rc = RunConfig(q_chunk=8, kv_chunk=8, mamba_chunk=8, rwkv_chunk=8,
+                   loss_chunk=8)
+    G = SHARD["moe_groups"]
+    lr = TRAIN_SMALL["lr"]
+    for i, arch in enumerate(SHARD_MOE):
+        cfg = dataclasses.replace(reduced(get_config(arch)),
+                                  compute_dtype="float32")
+        data = SyntheticLM(LMDataConfig(vocab_size=cfg.vocab_size,
+                                        seq_len=24, global_batch=4, seed=i))
+        batch = data.batch(0)
+        card_rules = ShardingRules.for_mesh(mesh).with_overrides(
+            moe_groups=G)
+        cpu_rules = ShardingRules.for_mesh(cpu_mesh).with_overrides(
+            moe_groups=G)
+        params = init_train_state(cfg, i, device="cpu")["params"]
+        h_cpu, aux_cpu = build_model(cfg, cpu_rules, rc=rc, device="cpu") \
+            .hidden_states(params, batch)
+        card_model = build_model(cfg, card_rules, rc=rc, device=dev)
+        h_card, aux_card = card_model.hidden_states(
+            tree_map(lambda a: a.to(dev), params), batch)
+        err = float((h_card.cpu() - h_cpu).abs().max())
+        aux_err = max(abs(float(aux_card[k]) - float(aux_cpu[k])) /
+                      max(abs(float(aux_cpu[k])), 1e-30) for k in aux_cpu)
+        if not (err <= LM_TOL and aux_err <= TRAIN_TOL["loss"] * 10):
+            fail(f"{arch} grouped MoE: card vs CPU hidden {err:.3g}, aux "
+                 f"{aux_err:.3g}")
+        wide = dataclasses.replace(cfg, capacity_factor=64.0)
+        h_g, _ = build_model(wide, card_rules, rc=rc, device=dev) \
+            .hidden_states(tree_map(lambda a: a.to(dev), params), batch)
+        h_u, _ = build_model(wide, None, rc=rc, device=dev) \
+            .hidden_states(tree_map(lambda a: a.to(dev), params), batch)
+        if not torch.allclose(h_g, h_u, **SHARD_MOE_TOL):
+            fail(f"{arch}: grouped vs ungrouped at capacity factor 64 "
+                 f"differ ({float((h_g - h_u).abs().max()):.3g})")
+        steps = {}
+        for name, rules, d_ in (("card", card_rules, dev),
+                                ("cpu", cpu_rules, torch.device("cpu"))):
+            st = shard_train_state(init_train_state(cfg, i, device="cpu"),
+                                   cfg, rules)
+            steps[name] = make_train_step(cfg, rules, rc,
+                                          AdamWConfig(lr=lr))(st, batch)
+        unwrap = lambda t: tree_map(lambda a: a.to_local(), t)
+        errs = state_errors(torch, unwrap(steps["card"][0]),
+                            unwrap(steps["cpu"][0]), lr)
+        for k in ("loss", "grad_norm"):
+            want = float(steps["cpu"][1][k])
+            errs[k] = abs(float(steps["card"][1][k]) - want) / abs(want)
+        for k, tol in TRAIN_TOL.items():
+            if not errs[k] <= tol:
+                fail(f"{arch} grouped sharded train step: card vs CPU {k} "
+                     f"error {errs[k]:.3g} above {tol}")
+        say(f"{arch} reduced, moe_groups={G}: grouped forward card == CPU "
+            f"(hidden max abs err {err:.2g}, aux rel {aux_err:.2g}); "
+            f"grouped == ungrouped at capacity factor 64 within "
+            f"{SHARD_MOE_TOL}; one sharded train step card == CPU (loss "
+            f"rel err {errs['loss']:.2g}, grad_norm {errs['grad_norm']:.2g},"
+            f" moments {errs['moments']:.2g}, params {errs['params']:.2g})")
+
+
+def start_dryrun(root: Path, d: Path) -> list:
+    """Phase 11e, started: the dry-run CLI on one cell of each mode and a
+    long_500k cell, single pod, as two subprocesses (host work only) that
+    run beside phases 11b-d."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    runs = []
+    for arch, shape, want in SHARD_DRYRUN:
+        log = open(d / f"dryrun-{arch}.log", "w+")
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--multi-pod", "single", "--out",
+             str(d / f"dryrun-{arch}.json")], cwd=root, env=env,
+            stdout=log, stderr=subprocess.STDOUT, text=True)
+        runs.append((arch, shape, want, proc, log, time.perf_counter()))
+    return runs
+
+
+def finish_dryrun(runs: list):
+    """Phase 11e, awaited: each run's counts line, 0 errors."""
+    for arch, shape, want, proc, log, t0 in runs:
+        try:
+            rc = proc.wait(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        log.seek(0)
+        lines = log.read().strip().splitlines()
+        log.close()
+        if rc or not lines or lines[-1] != f"dry-run complete: {want}":
+            fail(f"dry-run {arch} {shape}: exit {rc}\n" +
+                 "\n".join(lines[-40:]))
+        say(f"dry-run {arch} x {shape} (single pod) in "
+            f"{time.perf_counter() - t0:.1f} s: " + "; ".join(
+                ln for ln in lines if ln.startswith("[")) +
+            f"; {lines[-2]}; {lines[-1]}")
+
+
+def shard_path(torch, np, dev, root: Path, p10=None):
+    """Phase 11: sharded training and its accounting.  ``p10`` is phase
+    10b's timing where it ran."""
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_device_mesh
+    (root / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=root / "build") as tmp:
+        d = Path(tmp)
+        t0 = time.perf_counter()
+        launched = shard_launcher(torch, root, d)
+        replay = shard_replay(torch, np, dev, d, launched, p10)
+        say(f"phase 11a: sharded launcher == unsharded "
+            f"({time.perf_counter() - t0:.1f} s)")
+        t_dry = time.perf_counter()
+        runs = start_dryrun(root, d)
+        done = False
+        dist.init_process_group("cpu:gloo,cuda:nccl", store=dist.HashStore(),
+                                rank=0, world_size=1)
+        try:
+            mesh = make_device_mesh((1, 1), ("data", "model"), device="cuda")
+            cpu_mesh = make_device_mesh((1, 1), ("data", "model"),
+                                        device="cpu")
+            t0 = time.perf_counter()
+            shard_accounting(torch, dev, mesh, replay)
+            say(f"phase 11b: accounting == the card's shards "
+                f"({time.perf_counter() - t0:.1f} s)")
+            t0 = time.perf_counter()
+            shard_elastic(torch, np, mesh, d, replay)
+            del replay
+            say(f"phase 11c: elastic restore exact "
+                f"({time.perf_counter() - t0:.1f} s)")
+            t0 = time.perf_counter()
+            shard_moe(torch, np, dev, mesh, cpu_mesh)
+            say(f"phase 11d: grouped MoE card == CPU "
+                f"({time.perf_counter() - t0:.1f} s)")
+            done = True
+        finally:
+            dist.destroy_process_group()
+            if not done:                 # a phase failed: stop the dry-runs
+                for run in runs:
+                    run[3].kill()
+                    run[3].wait()
+        t0 = time.perf_counter()
+        finish_dryrun(runs)
+        say(f"phase 11e: dry-run CLI ({time.perf_counter() - t_dry:.1f} s "
+            f"from its start beside phases 11b-d, "
+            f"{time.perf_counter() - t0:.1f} s after them)")
+
+
 def rounds_check(path: str, calls, exact_fetch: bool):
     """One gathered K1 launch per verification round: every topk call's
     K1 launches must equal its rounds.  On whole series every round is
@@ -3046,7 +3435,7 @@ def main():
     say(f"phase 1: kernels built from {_lib.CSRC.relative_to(root)} in "
         f"{_lib.build_seconds():.1f} s -> {_lib.library_path().parent}")
     if sys.argv[1:] in (["--k5"], ["--k2"], ["--split"], ["--serve"],
-                        ["--lm"], ["--train"]):
+                        ["--lm"], ["--train"], ["--shard"]):
         if sys.argv[1] == "--k5":
             k5_shapes(torch, ops, ref, dev)
         elif sys.argv[1] == "--k2":
@@ -3062,6 +3451,11 @@ def main():
             t0 = time.perf_counter()
             train_path(torch, np, dev, root)
             say(f"phase 10: training path exact "
+                f"({time.perf_counter() - t0:.1f} s)")
+        elif sys.argv[1] == "--shard":
+            t0 = time.perf_counter()
+            shard_path(torch, np, dev, root)
+            say(f"phase 11: sharded training path exact "
                 f"({time.perf_counter() - t0:.1f} s)")
         else:
             split_only(torch, np, dev)
@@ -3110,8 +3504,13 @@ def main():
     say(f"phase 9: LM path exact ({time.perf_counter() - t0:.1f} s)")
 
     t0 = time.perf_counter()
-    train_path(torch, np, dev, root)
+    p10 = train_path(torch, np, dev, root)
     say(f"phase 10: training path exact ({time.perf_counter() - t0:.1f} s)")
+
+    t0 = time.perf_counter()
+    shard_path(torch, np, dev, root, p10)
+    say(f"phase 11: sharded training path exact "
+        f"({time.perf_counter() - t0:.1f} s)")
 
     paths = (("main", counts, MAIN_KERNELS),
              ("index", idx_counts, MAIN_KERNELS),
@@ -3136,7 +3535,7 @@ def main():
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": r["library_ms"]})
-    say(f"phase 11: every kernel launched on its paths; total "
+    say(f"phase 12: every kernel launched on its paths; total "
         f"{time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
 

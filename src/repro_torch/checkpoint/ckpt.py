@@ -16,6 +16,13 @@ writes (``['params']['blocks'][0]['mix']['wq']``), which the port's
 numpy has no bfloat16: a bf16 leaf is stored as its raw 2-byte words
 (numpy dtype ``V2``) with ``"bfloat16"`` in the manifest, the bytes the
 JAX package writes for one, and read back bit for bit.
+
+A sharded state (``DTensor`` leaves, ``train.state.shard_train_state``)
+is saved logically unsharded, as the JAX package stores it: every rank
+gathers each full leaf, rank 0 writes, and all ranks wait for the commit.
+A restore reads full leaves on every rank and keeps each rank's shard,
+on the ``shardings`` given or on the ``like`` leaf's placements, so one
+checkpoint restores onto any mesh (``checkpoint.elastic``).
 """
 
 from __future__ import annotations
@@ -32,6 +39,8 @@ import torch
 from repro_torch.core.engine import resolve_device
 from repro_torch.models.transformer import (
     tree_leaves_with_path, tree_map_with_path)
+from repro_torch.sharding.collectives import Collectives, distribute, to_local
+from repro_torch.sharding.specs import NamedPlacements
 
 BF16_WORD = np.dtype("V2")
 
@@ -41,6 +50,18 @@ def _dtype_name(leaf) -> str:
     if torch.is_tensor(leaf):
         return str(leaf.dtype).removeprefix("torch.")
     return str(np.asarray(leaf).dtype)
+
+
+def _is_sharded(leaf) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(leaf, DTensor)
+
+
+def _full(leaf):
+    """A ``DTensor`` leaf gathered to full on the host (a collective:
+    every rank calls it)."""
+    comm = Collectives(leaf.device_mesh)
+    return comm.gather(to_local(leaf), leaf.placements).cpu()
 
 
 def _to_numpy(leaf) -> np.ndarray:
@@ -67,8 +88,26 @@ def _config_hash(leaves: dict) -> str:
 
 def save_checkpoint(directory: str, step: int, state, *, host: int = 0,
                     keep: int = 3) -> str:
-    """Write one checkpoint; returns its final path."""
+    """Write one checkpoint; returns its final path.  With ``DTensor``
+    leaves every rank must call it: each gathers the full leaves, rank 0
+    writes, and all return once the commit is made."""
     leaves = dict(tree_leaves_with_path(state))
+    if any(_is_sharded(v) for v in leaves.values()):
+        import torch.distributed as dist
+        writer = dist.get_rank() == 0
+        full = {}
+        for k, v in leaves.items():
+            v = _full(v) if _is_sharded(v) else v
+            if writer:
+                full[k] = v
+        final = _write(directory, step, full, host, keep) if writer else None
+        dist.barrier()
+        return final or os.path.join(directory, f"step_{step:08d}")
+    return _write(directory, step, leaves, host, keep)
+
+
+def _write(directory: str, step: int, leaves: dict, host: int,
+           keep: int) -> str:
     name = f"step_{step:08d}"
     tmp = os.path.join(directory, name + ".tmp")
     final = os.path.join(directory, name)
@@ -123,11 +162,15 @@ def latest_step(directory: str):
     return int(name.split("_")[1])
 
 
-def restore_checkpoint(directory: str, like, *, step=None, device=None):
-    """Restore into the structure of ``like`` (a state tree of tensors).
-    Each leaf takes its ``like`` leaf's dtype and goes to ``device``, or
-    where there is none, to its ``like`` leaf's device.  Returns (state,
-    manifest)."""
+def restore_checkpoint(directory: str, like, *, step=None, device=None,
+                       shardings=None):
+    """Restore into the structure of ``like`` (a state tree of tensors,
+    meta tensors included).  Each leaf takes its ``like`` leaf's dtype
+    and is placed by ``shardings`` (a matching tree of
+    ``NamedPlacements`` on a runtime mesh: this rank's shard as a
+    ``DTensor``), or where there is none, on its ``like`` leaf's
+    placements when that is a ``DTensor``, else on ``device`` or its
+    ``like`` leaf's device.  Returns (state, manifest)."""
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -142,7 +185,7 @@ def restore_checkpoint(directory: str, like, *, step=None, device=None):
                 data.update({k: z[k] for k in z.files})
     dev = None if device is None else resolve_device(device)
 
-    def take(k, leaf):
+    def take(k, leaf, named=None):
         if k not in data:
             raise KeyError(f"checkpoint at step {step} missing leaf {k}")
         arr = data[k]
@@ -150,10 +193,16 @@ def restore_checkpoint(directory: str, like, *, step=None, device=None):
         if tuple(arr.shape) != want:
             raise ValueError(
                 f"leaf {k}: checkpoint shape {arr.shape} != expected {want}")
-        return _from_numpy(arr).to(device=leaf.device if dev is None
-                                   else dev, dtype=leaf.dtype)
+        full = _from_numpy(arr).to(dtype=leaf.dtype)
+        if named is None and _is_sharded(leaf):
+            named = NamedPlacements(leaf.device_mesh, leaf.placements)
+        if named is not None:
+            return distribute(full, named)
+        return full.to(device=leaf.device if dev is None else dev)
 
-    return tree_map_with_path(take, like), manifest
+    if shardings is None:
+        return tree_map_with_path(take, like), manifest
+    return tree_map_with_path(take, like, shardings), manifest
 
 
 class Checkpointer:
@@ -173,8 +222,8 @@ class Checkpointer:
 
     def restore_or_init(self, init_fn):
         """(state, step): the latest checkpoint restored into the shapes,
-        dtypes and devices of ``init_fn()``'s state, or that state and 0
-        when there is none."""
+        dtypes, devices and placements of ``init_fn()``'s state, or that
+        state and 0 when there is none."""
         step = latest_step(self.directory)
         if step is None:
             return init_fn(), 0

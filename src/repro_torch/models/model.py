@@ -6,8 +6,9 @@ weights: as in the JAX package, each call takes the tree, which
 ``params_from_reference`` maps leaf for leaf from the JAX package's.
 
 The device is ``cuda`` unless the caller asks for the CPU, and a CUDA
-model raises when there is no card.  Sharding is not part of this port
-yet: ``build_model`` takes only ``rules=None``.
+model raises when there is no card.  ``rules`` (``sharding.
+ShardingRules``) reach every entry point; the model reads their
+``moe_groups`` (the MoE's group-local dispatch).
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ class Model:
     rc: RunConfig = field(default_factory=RunConfig)
     device: torch.device = field(
         default_factory=lambda: resolve_device("cuda"))
+    rules: object = None
 
     # -- parameters ----------------------------------------------------
     def init(self, seed=0, device=None):
@@ -60,14 +62,15 @@ class Model:
     def loss(self, params, batch):
         """batch: dict(tokens, labels[, prefix_embed, encoder_frames]).
         Differentiable: ``train.step`` takes its gradients by autograd."""
-        return T.lm_loss(params, self.cfg, self._batch(batch), self.rc)
+        return T.lm_loss(params, self.cfg, self._batch(batch), self.rc,
+                         rules=self.rules)
 
     def hidden_states(self, params, batch):
         batch = self._batch(batch)
         x, aux, _ = T.forward(
             params, self.cfg, batch["tokens"], rc=self.rc,
             prefix_embed=batch.get("prefix_embed"),
-            encoder_frames=batch.get("encoder_frames"))
+            encoder_frames=batch.get("encoder_frames"), rules=self.rules)
         return x, aux
 
     def logits(self, params, batch):
@@ -82,11 +85,12 @@ class Model:
         return T.prefill(
             params, self.cfg, batch["tokens"], rc=self.rc,
             prefix_embed=batch.get("prefix_embed"),
-            encoder_frames=batch.get("encoder_frames"))
+            encoder_frames=batch.get("encoder_frames"), rules=self.rules)
 
     def decode_step(self, params, cache, token):
         token = torch.as_tensor(token).to(self.device)
-        return T.decode_step(params, self.cfg, cache, token, rc=self.rc)
+        return T.decode_step(params, self.cfg, cache, token, rc=self.rc,
+                             rules=self.rules)
 
     def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16):
         return T.init_cache(self.cfg, batch, max_len, dtype, self.device)
@@ -94,7 +98,5 @@ class Model:
 
 def build_model(cfg: ModelConfig, rules=None,
                 rc: Optional[RunConfig] = None, device="cuda") -> Model:
-    if rules is not None:
-        raise NotImplementedError("sharding rules are not ported yet; "
-                                  "pass rules=None")
-    return Model(cfg=cfg, rc=rc or RunConfig(), device=resolve_device(device))
+    return Model(cfg=cfg, rc=rc or RunConfig(), device=resolve_device(device),
+                 rules=rules)

@@ -10,8 +10,13 @@ pattern-position subtree carries a leading ``pattern_repeats`` axis
 (R, ...), and so does every cache leaf (R, B, S, ...); where the JAX
 package scans over R, the port loops over it in Python.
 
-Sharding is not part of this port yet: no function here takes sharding
-rules (the JAX package's ``constrain`` is a no-op without them).
+The JAX package's sharding view of the schema is here too:
+``abstract_params`` (meta tensors, no allocation), ``param_pspecs`` and
+``param_logical_dims``, and for caches ``init_cache(abstract=True)``,
+``cache_logical_dims`` and ``cache_pspecs``.  The execution paths take a
+``rules=`` keyword (``sharding.ShardingRules``); the model reads only its
+``moe_groups`` (the MoE's group-local dispatch), since every rank computes
+with full tensors (``sharding.constrain`` is the identity).
 """
 
 from __future__ import annotations
@@ -42,9 +47,10 @@ def pick_chunk(n: int, target: int) -> int:
     return c
 
 
-def dtype_of(name: str) -> torch.dtype:
-    """A config's dtype name ("float32", "bfloat16") as a torch dtype."""
-    return getattr(torch, name)
+def dtype_of(name) -> torch.dtype:
+    """A config's dtype name ("float32", "bfloat16") as a torch dtype (a
+    torch dtype passes through)."""
+    return name if isinstance(name, torch.dtype) else getattr(torch, name)
 
 
 # ---------------------------------------------------------------------------
@@ -329,6 +335,24 @@ def params_from_reference(cfg: ModelConfig, tree, device="cpu") -> dict:
     return tree_map_with_path(take, schema, tree, is_leaf=_is_pspec)
 
 
+def abstract_params(cfg: ModelConfig, dtype=None) -> dict:
+    """The parameter tree as meta tensors (shapes and dtype, no storage):
+    the dry-run's stand-in.  ``dtype`` defaults to ``param_dtype``."""
+    dt = dtype_of(dtype or cfg.param_dtype)
+    return tree_map(lambda s: torch.empty(s.shape, dtype=dt, device="meta"),
+                    param_schema(cfg), is_leaf=_is_pspec)
+
+
+def param_pspecs(cfg: ModelConfig, rules) -> dict:
+    """PartitionSpec tree mirroring the params."""
+    return tree_map(lambda s: rules.pspec(s.dims, s.shape),
+                    param_schema(cfg), is_leaf=_is_pspec)
+
+
+def param_logical_dims(cfg: ModelConfig) -> dict:
+    return tree_map(lambda s: s.dims, param_schema(cfg), is_leaf=_is_pspec)
+
+
 # Leaves the model reads in f32 whatever the compute dtype (norm scales,
 # the SSM's decay and skip, RWKV's decay, bonus and group norm).
 _F32_LEAVES = frozenset({
@@ -410,7 +434,7 @@ def _apply_mix(p, x, cfg, spec, rc: RunConfig, *, positions,
 
 def apply_block(bp, x, cfg, spec: LayerSpec, rc: RunConfig, *,
                 positions, encoder_out=None, cache=None, pos=None,
-                aux=None, collect=False):
+                aux=None, collect=False, rules=None):
     """One block: mixer + (cross) + mlp with pre-norms and residuals.
 
     Returns (x, cache_out) — cache_out has the layer-cache structure when
@@ -443,7 +467,7 @@ def apply_block(bp, x, cfg, spec: LayerSpec, rc: RunConfig, *,
         mlp, mlp_cache_out = R.rwkv_channel_mix(
             bp["mlp"], h, cfg, state=cm_cache, collect_state=collect)
     elif spec.moe:
-        mlp = MoE.moe_mlp(bp["mlp"], h, cfg, aux=aux)
+        mlp = MoE.moe_mlp(bp["mlp"], h, cfg, rules=rules, aux=aux)
     else:
         mlp = L.swiglu_mlp(bp["mlp"], h)
     x = x + mlp
@@ -459,7 +483,10 @@ def apply_block(bp, x, cfg, spec: LayerSpec, rc: RunConfig, *,
 
 
 def _stack_layers(per_layer: list):
-    """Per-layer cache trees -> one tree of stacked (R, ...) leaves."""
+    """Per-layer cache trees -> one tree of stacked (R, ...) leaves (None
+    for a config of no layers, which the dry-run traces)."""
+    if not per_layer:
+        return None
     return tree_map(lambda *xs: torch.stack(xs), per_layer[0], *per_layer[1:])
 
 
@@ -519,7 +546,8 @@ _AUX = ("load_balance", "router_z", "dropped_frac")
 
 
 def forward(params, cfg: ModelConfig, tokens, *, rc: RunConfig,
-            prefix_embed=None, encoder_frames=None, collect_cache=False):
+            prefix_embed=None, encoder_frames=None, collect_cache=False,
+            rules=None):
     """tokens: (B, S_text).  Returns (hidden (B,S,d), aux, caches|None).
 
     S = prefix_len + S_text for VLM configs (prefix embeddings prepended).
@@ -553,7 +581,8 @@ def forward(params, cfg: ModelConfig, tokens, *, rc: RunConfig,
         for i, spec in enumerate(cfg.pattern):
             x, cache_out = apply_block(
                 layers[i][r], x, cfg, spec, rc, positions=positions,
-                encoder_out=encoder_out, aux=aux, collect=collect_cache)
+                encoder_out=encoder_out, aux=aux, collect=collect_cache,
+                rules=rules)
             outs.append(cache_out)
         return x, tuple(aux[n] for n in _AUX), outs
 
@@ -598,15 +627,19 @@ def _ce_chunk(xi, yi, head):
     return ((lse - gold) * mask).sum(), mask.sum()
 
 
-def lm_loss(params, cfg: ModelConfig, batch, rc: RunConfig):
+def lm_loss(params, cfg: ModelConfig, batch, rc: RunConfig, *,
+            rules=None):
     """batch: dict(tokens, labels[, prefix_embed, encoder_frames]).
 
-    labels < 0 are masked.  Returns (loss, metrics).
+    labels < 0 are masked.  Returns (loss, metrics).  With
+    ``rules.batch`` (the sharded step's batch ranks, each holding a slice
+    of the batch) the loss and metrics are the whole batch's on every
+    rank, and the gradient is this slice's part of the whole batch's.
     """
     x, aux, _ = forward(
         params, cfg, batch["tokens"], rc=rc,
         prefix_embed=batch.get("prefix_embed"),
-        encoder_frames=batch.get("encoder_frames"))
+        encoder_frames=batch.get("encoder_frames"), rules=rules)
     B, S, d = x.shape
     labels = batch["labels"]
     if cfg.prefix_len:      # prefix positions carry no LM loss
@@ -625,6 +658,9 @@ def lm_loss(params, cfg: ModelConfig, batch, rc: RunConfig):
                        head)
         tot = tot + t
         cnt = cnt + c
+    group = getattr(rules, "batch", None)
+    if group is not None:       # the mean over every rank's labels
+        tot, cnt = group.total(tot), group.sum(cnt)
     ce = tot / torch.clamp_min(cnt, 1.0)
     loss = ce
     if cfg.n_experts:
@@ -639,11 +675,13 @@ def lm_loss(params, cfg: ModelConfig, batch, rc: RunConfig):
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               dtype=torch.bfloat16, device="cpu"):
+               dtype=torch.bfloat16, device="cpu", abstract: bool = False):
     """Cache tree for decoding; leaves stacked over pattern repeats.
-    ``pos`` is a Python int (the JAX package's is an int32 scalar)."""
+    ``pos`` is a Python int (the JAX package's is an int32 scalar).
+    ``abstract=True`` gives meta tensors, without any allocation (the
+    dry-run's path: a 500k-context cache never touches memory)."""
     Rn = cfg.pattern_repeats
-    dev = torch.device(device)
+    dev = torch.device("meta" if abstract else device)
 
     def one(spec: LayerSpec):
         c = {}
@@ -674,7 +712,48 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     return cache
 
 
-def decode_step(params, cfg: ModelConfig, cache, token, *, rc: RunConfig):
+def cache_logical_dims(cfg: ModelConfig) -> dict:
+    """Logical-dim tree mirroring ``init_cache`` (drives cache sharding)."""
+    def one(spec: LayerSpec):
+        c = {}
+        if spec.kind == ATTN:
+            c["mix"] = {"k": ("batch", "cache_seq", "kvheads", "hd"),
+                        "v": ("batch", "cache_seq", "kvheads", "hd")}
+        elif spec.kind == MAMBA:
+            c["mix"] = {"conv": ("batch", "vec", "d_inner"),
+                        "ssm": ("batch", "d_inner", "vec")}
+        else:
+            c["mix"] = {"shift_tm": ("batch", "vec", "vec"),
+                        "wkv": ("batch", "rheads", "vec", "vec")}
+            c["mlp"] = {"shift_cm": ("batch", "vec", "vec")}
+        if spec.cross_attn:
+            c["cross"] = {"k": ("batch", "frames", "kvheads", "hd"),
+                          "v": ("batch", "frames", "kvheads", "hd")}
+        return c
+
+    blocks = [tree_map(lambda dims: ("layers",) + dims, one(s),
+                       is_leaf=_is_dims) for s in cfg.pattern]
+    dims = {"blocks": blocks, "pos": ()}
+    if cfg.is_enc_dec:
+        dims["encoder_out"] = ("batch", "frames", "vec")
+    return dims
+
+
+def _is_dims(x) -> bool:
+    """A tuple of logical dim names (``()`` included): a leaf of a dims
+    tree."""
+    return isinstance(x, tuple) and all(isinstance(e, str) for e in x)
+
+
+def cache_pspecs(cfg: ModelConfig, rules, cache) -> dict:
+    """PartitionSpec tree for a cache tree (``pos`` gets ``P()``)."""
+    return tree_map(lambda dm, leaf: rules.pspec(dm, tuple(getattr(
+        leaf, "shape", ()))), cache_logical_dims(cfg), cache,
+        is_leaf=_is_dims)
+
+
+def decode_step(params, cfg: ModelConfig, cache, token, *, rc: RunConfig,
+                rules=None):
     """One decode step.  token: (B, 1) int.  Returns (logits, new_cache).
 
     The step is written into the cache's tensors in place where their
@@ -693,7 +772,7 @@ def decode_step(params, cfg: ModelConfig, cache, token, *, rc: RunConfig):
             x, cache_out = apply_block(
                 _at(params["blocks"][i], r), x, cfg, spec, rc,
                 positions=positions, cache=_at(cache["blocks"][i], r),
-                pos=pos)
+                pos=pos, rules=rules)
             new_cs[i].append(cache_out)
     new_blocks = [_restack(old, new) for old, new in
                   zip(cache["blocks"], new_cs)]
@@ -705,10 +784,10 @@ def decode_step(params, cfg: ModelConfig, cache, token, *, rc: RunConfig):
 
 
 def prefill(params, cfg: ModelConfig, tokens, *, rc: RunConfig,
-            prefix_embed=None, encoder_frames=None):
+            prefix_embed=None, encoder_frames=None, rules=None):
     """Run the full prompt, return (last-position logits, cache)."""
     x, _, cache = forward(
         params, cfg, tokens, rc=rc, prefix_embed=prefix_embed,
-        encoder_frames=encoder_frames, collect_cache=True)
+        encoder_frames=encoder_frames, collect_cache=True, rules=rules)
     logits = (x[:, -1:] @ unembed(params, cfg).to(x.dtype)).float()
     return logits[:, 0], cache

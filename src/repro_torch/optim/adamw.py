@@ -44,10 +44,14 @@ def global_norm(tree):
 
 
 def adamw_update(cfg: AdamWConfig, params, grads, opt_state, step, *,
-                 lr_scale=1.0):
+                 lr_scale=1.0, gnorm=None):
     """Returns (new_params, new_opt_state, metrics).  ``step`` is the
-    0-d step counter (tensor or int) before this update."""
-    gnorm = global_norm(grads)
+    0-d step counter (tensor or int) before this update.  ``gnorm`` is
+    the gradients' global norm where the caller has it (a sharded step
+    sums over every shard, ``train.step``); by default
+    :func:`global_norm` of ``grads``."""
+    if gnorm is None:
+        gnorm = global_norm(grads)
     clip = torch.clamp_max(cfg.grad_clip / torch.clamp_min(gnorm, 1e-9), 1.0)
     t = (torch.as_tensor(step, device=gnorm.device) + 1).to(F32)
     bc1 = 1.0 - cfg.b1 ** t

@@ -12,7 +12,11 @@
   always consistent (ckpt.py's atomic rename).
 
 A step's clock stops after the card has finished it (a synchronise on
-the loss's device).
+the loss's device).  In a ``torch.distributed`` world of several ranks
+(a sharded step) every rank runs the loop: checkpoints are collective
+saves (``checkpoint.ckpt``), a restore puts each leaf back on its
+placements, and the straggler policy sees the slowest rank's step time,
+so all ranks take the same decision.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from dataclasses import dataclass, field
 from typing import Callable, Optional
 
 import numpy as np
+import torch
 
 from repro_torch.checkpoint.ckpt import Checkpointer
 from repro_torch.obs.trace import block_until_ready
@@ -73,6 +78,17 @@ class StragglerPolicy:
         return False
 
 
+def _slowest(dt: float, like) -> float:
+    """The largest of the ranks' step times (one all-reduce on ``like``'s
+    device) in a world of several; ``dt`` elsewhere."""
+    import torch.distributed as dist
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        return dt
+    t = torch.tensor([dt], dtype=torch.float64, device=like.device)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return float(t)
+
+
 def train_loop(*, init_state_fn: Callable, train_step: Callable,
                batch_fn: Callable, n_steps: int,
                checkpointer: Optional[Checkpointer] = None,
@@ -112,7 +128,8 @@ def train_loop(*, init_state_fn: Callable, train_step: Callable,
             if log_every and step % log_every == 0:
                 print(f"step {step:6d} loss {loss:.4f} {dt*1e3:.1f} ms",
                       flush=True)
-            if straggler is not None and straggler.observe(step, dt):
+            if straggler is not None and straggler.observe(
+                    step, _slowest(dt, metrics["loss"])):
                 history["straggler_events"] += 1
                 if checkpointer is not None:
                     checkpointer.maybe_save(step + 1, state, force=True)

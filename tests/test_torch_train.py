@@ -227,8 +227,10 @@ def test_microbatch_is_the_mean_of_its_pieces():
 
 
 def test_make_train_step_refuses_rules():
+    """Rules that carry no mesh cannot shard a step (the sharded step is
+    ``tests/test_torch_sharded_train.py``'s)."""
     cfg = reduced(get_config("qwen3-0.6b"))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="mesh"):
         make_train_step(cfg, object(), RunConfig(), AdamWConfig())
 
 
