@@ -9,6 +9,7 @@
     python3 chip_smoke.py --lm     # build, then phase 9 alone
     python3 chip_smoke.py --train  # build, then phase 10 alone
     python3 chip_smoke.py --shard  # build, then phase 11 alone
+    python3 chip_smoke.py --dist   # build, then phase 12 alone
 
 Phases, each failing loudly with a nonzero exit:
 
@@ -208,10 +209,27 @@ Phases, each failing loudly with a nonzero exit:
    cells (train_4k, prefill_32k, decode_32k, and long_500k's documented
    skip) and jamba-1.5-large's long_500k, single pod: the counts line,
    0 errors, seconds printed.
-12. Print each path's launch counts (each kernel of a path > 0) and the
-   ``{"kernels": [...]}`` line with the launches of all eight paths
-   (the training paths launch none of the five kernels).
-13. Print the card's name and power limit, then the result line.
+12. Drive matching over a ``torch.distributed`` world of cards: (a)
+   ``python -m torch.distributed.run --standalone --nproc-per-node 1
+   chip_smoke.py --dist-rank`` (NCCL, one rank per card) rebuilds phase
+   3's 1M-row corpus and phase 5's sSAX windows from their seeds on
+   ``make_mesh(DEV_SHARDS, group=WORLD)`` and makes phase 7's calls:
+   sSAX and SAX at k = 1 and 32 with ``verify="device"`` and ``"host"``,
+   and the sSAX windows at k = 8.  Each answer, its rounds and rows must
+   be bitwise phase 7's (with ``--dist``, the rank's own single-process
+   answers), K1 launches equal to rounds on the rank, one K2 launch per
+   sSAX sweep; wall, per-rank peak memory and per-round collective time
+   (each collective fenced, in a second run of the device calls) are
+   printed.  (b) The match launcher at its default size under
+   ``torch.distributed.run`` beside one process at the same shard count:
+   exit 0, every exact line 8/8, answer hashes equal on every rank and
+   to the single process's.  Where ``torch.cuda.device_count() >= 2``,
+   both repeat at ``min(count, 4)`` ranks.
+13. Print each path's launch counts (each kernel of a path > 0) and the
+   ``{"kernels": [...]}`` line with the launches of all nine paths
+   (the training paths launch none of the five kernels; the world's are
+   rank 0's).
+14. Print the card's name and power limit, then the result line.
 
 It imports neither JAX nor the JAX package, needs the repository beside
 it, and exits nonzero without printing a result when there is no card.
@@ -295,6 +313,9 @@ TRAIN_MB_TOL = 5e-2           # microbatch=2 vs 1, bf16: relative, in norm
 SHARD = dict(steps=4, batch=8, seq=512, warm_skip=1, moe_groups=4)
 SHARD_MOE = ("olmoe-1b-7b", "jamba-1.5-large-398b")
 SHARD_MOE_TOL = dict(rtol=2e-2, atol=2e-3)   # grouped vs ungrouped
+# the world phase: phase 7's calls over a torch.distributed world of
+# cards, the window call at k = 8; a rank command's time limit
+WORLD = dict(window_k=8, timeout=600)
 SHARD_DRYRUN = (("smollm-135m", "all", "3 ok, 1 documented skips, 0 "
                  "errors"),
                 ("jamba-1.5-large-398b", "long_500k",
@@ -1504,7 +1525,9 @@ def device_path(torch, np, dev, main, sub):
     """Phase 7: the device-resident path — ``make_engine_service`` and
     ``SubseqEngine(mesh=)`` over ``make_mesh(DEV_SHARDS)`` — on phase 3's
     corpus and phase 5's windows, then its checks.  Returns the kernels'
-    launch counts during the path alone."""
+    launch counts during the path alone and its answers, which phase 12
+    holds the world's against: ``(tech, verify, k)`` and ``("windows",
+    k, exclusion)`` -> (result, calls, wall seconds)."""
     from repro_torch.core.distributed import make_engine_service, make_mesh
     from repro_torch.core.normalize import znormalize
     from repro_torch.kernels import launch_counts, reset_launch_counts
@@ -1518,7 +1541,7 @@ def device_path(torch, np, dev, main, sub):
     Q, D, brute, linear = main["Q"], main["D"], main["brute"], \
         main["results"]
     mesh = make_mesh(DEV_SHARDS, dev)
-    all_calls, k2_calls = [], []
+    all_calls, k2_calls, answers = [], [], {}
 
     def call(engine, queries, **kw):
         engine.store.reset()
@@ -1590,6 +1613,7 @@ def device_path(torch, np, dev, main, sub):
         for verify in ("device", "host"):
             for k in KS:
                 res, wall, calls = call(engines[verify], Q, k=k)
+                answers[tech, verify, k] = (res, calls, wall)
                 if tech == "ssax":
                     k2_calls.append(calls)
                 bf_i, bf_d = brute[tech]
@@ -1670,6 +1694,7 @@ def device_path(torch, np, dev, main, sub):
         calls = {n: c - before[n] for n, c in launch_counts().items()}
         all_calls.append((res, wall, calls))
         k2_calls.append(calls)
+        answers["windows", k, excl] = (res, calls, wall)
         p5 = sub["results"]["ssax", k, excl][0]
         order = sub["orders"][n_e]
         want = np.stack([greedy_nonoverlap(order[qi], nw, SUB_STRIDE, k,
@@ -1711,7 +1736,7 @@ def device_path(torch, np, dev, main, sub):
     say(f"device path launches: {counts}")
     rounds_check("device path", all_calls, exact_fetch=False)
     sweep_check("device path", k2_calls)
-    return counts
+    return counts, answers
 
 
 def ingest_while_serving(np, engine, Q, extra, frozen, row_bytes, call):
@@ -3361,6 +3386,306 @@ def shard_path(torch, np, dev, root: Path, p10=None):
             f"{time.perf_counter() - t0:.1f} s after them)")
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: matching over a torch.distributed world of cards
+# ---------------------------------------------------------------------------
+
+def world_calls():
+    """Phase 12's calls, in the order every rank makes them: (key, tech,
+    verify, k); the window call's key is ("windows", k, 0)."""
+    calls = [((tech, v, k), tech, v, k) for tech in ("ssax", "sax")
+             for v in ("device", "host") for k in KS]
+    return calls + [(("windows", WORLD["window_k"], 0), "ssax", "device",
+                     WORLD["window_k"])]
+
+
+def answer_of(res) -> dict:
+    """What phase 12 holds bitwise: ids, distances, rounds, rows."""
+    ids = getattr(res, "window_ids", None)
+    return {"ids": res.indices if ids is None else ids,
+            "distances": res.distances, "rounds": res.rounds,
+            "raw_accesses": res.raw_accesses}
+
+
+def dist_rank(root: Path, out: Path, with_reference: bool):
+    """Phase 12's rank code, started by ``torch.distributed.run``: NCCL
+    on ``cuda:LOCAL_RANK``; phase 3's corpus and phase 5's sSAX windows
+    rebuilt from their seeds on a world mesh of ``DEV_SHARDS`` shards;
+    phase 7's calls made on it.  Rank 0 pickles the answers, each call's
+    launches and every rank's wall, peak memory and collective time into
+    ``out``; ``with_reference`` also answers each call on
+    ``make_mesh(DEV_SHARDS)`` of this process alone (the ``--dist`` run
+    without phase 7)."""
+    import os
+    import pickle
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_all = time.perf_counter()
+    dist.init_process_group("nccl", device_id=dev)
+    t0 = time.perf_counter()
+    dist.barrier(device_ids=[dev.index])   # the communicator, before timing
+    t_comm = time.perf_counter() - t0
+    from repro_torch.core.distributed import make_engine_service, make_mesh
+    from repro_torch.data.synthetic import season_corpus, season_dataset
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.ops import make_pairwise
+    from repro_torch.launch.match import (launcher_technique,
+                                          make_subseq_engine, subseq_queries)
+    from repro_torch.store import SymbolicStore
+    rank, world = dist.get_rank(), dist.get_world_size()
+    mesh = make_mesh(DEV_SHARDS, dev, group=dist.group.WORLD)
+    t0 = time.perf_counter()
+    X = season_corpus(N_MAIN + N_QUERIES, T, L, STRENGTH,
+                      per_series_strength=True, seed=1)
+    Q, D = X[:N_QUERIES], X[N_QUERIES:]
+    SD = season_dataset(SUB_ROWS, SUB_T, L, STRENGTH,
+                        per_series_strength=True, seed=7)
+    SQ, _, _ = subseq_queries(SD, SUB_M, N_QUERIES, np.random.default_rng(7))
+    t_data = time.perf_counter() - t0
+    meshes = {"world": mesh}
+    if with_reference:
+        meshes["single"] = make_mesh(DEV_SHARDS, dev)
+    answers, launches, walls, coll, setup = {}, {}, {}, {}, {}
+    reset_launch_counts()
+    for name, m in meshes.items():
+        for tech in ("ssax", "sax"):
+            enc = launcher_technique(tech, T, L, STRENGTH)
+            sym = SymbolicStore(enc, device=dev)
+            engines = {v: make_engine_service(
+                enc, None, m, store=sym, batch_size=BATCH, verify=v,
+                pairwise=make_pairwise(enc)) for v in ("device", "host")}
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            engines["device"].ingest(D)
+            for e in engines.values():
+                e.sweep._sync()
+            torch.cuda.synchronize(dev)
+            setup[name, tech] = (time.perf_counter() - t0,
+                                 engines["device"].sweep.h2d_bytes)
+            for key, t, v, k in world_calls():
+                if t != tech or key[0] == "windows":
+                    continue
+                eng = engines[v]
+                eng.store.reset()
+                before = launch_counts()
+                t0 = time.perf_counter()
+                res = eng.topk(Q, k=k)
+                walls[name, key] = time.perf_counter() - t0
+                launches[name, key] = {c: n - before[c] for c, n in
+                                       launch_counts().items()}
+                answers[name, key] = answer_of(res)
+                if name == "world" and v == "device":
+                    # the collectives' own time: the same call again,
+                    # each collective fenced on the device
+                    m.timed, m.collectives = True, dict.fromkeys(
+                        m.collectives, 0)
+                    eng.topk(Q, k=k)
+                    m.timed = False
+                    coll[key] = (dict(m.collectives), res.rounds)
+            del engines, sym
+        key, tech, v, k = world_calls()[-1]
+        t0 = time.perf_counter()
+        view, eng = make_subseq_engine(
+            tech, SD, m=SUB_M, stride=SUB_STRIDE, L=L, strength=STRENGTH,
+            batch=BATCH, verify=v, mesh=m, device=dev)
+        torch.cuda.synchronize(dev)
+        setup[name, "windows"] = (time.perf_counter() - t0, view.n)
+        before = launch_counts()
+        t0 = time.perf_counter()
+        res = eng.topk(SQ, k=k, use_index=False)
+        walls[name, key] = time.perf_counter() - t0
+        launches[name, key] = {c: n - before[c] for c, n in
+                               launch_counts().items()}
+        answers[name, key] = answer_of(res)
+        answers[name, key]["host_order"] = eng._sweep.host_order_bytes
+        del view, eng
+    me = {"wall": time.perf_counter() - t_all, "data": t_data,
+          "comm": t_comm,
+          "peak": torch.cuda.max_memory_allocated(dev), "rank": rank}
+    every = [None] * world
+    dist.all_gather_object(every, me)
+    if rank == 0:
+        with open(out / "world.pkl", "wb") as f:
+            pickle.dump({"answers": answers, "launches": launches,
+                         "walls": walls, "collectives": coll,
+                         "setup": setup, "ranks": every, "world": world,
+                         "counts": launch_counts()}, f)
+    dist.destroy_process_group()
+
+
+def run_world(torch, root: Path, out: Path, nproc: int,
+              with_reference: bool) -> dict:
+    """Start :func:`dist_rank` on ``nproc`` ranks under
+    ``torch.distributed.run`` and read rank 0's answers."""
+    import gc
+    import os
+    import pickle
+    gc.collect()
+    torch.cuda.empty_cache()          # the ranks need the card's memory
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(nproc), str(root / "chip_smoke.py"),
+           "--dist-rank", str(out)] + (["--reference"] if with_reference
+                                       else [])
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    t0 = time.perf_counter()
+    run = subprocess.run(cmd, cwd=root, env=env, capture_output=True,
+                         text=True, timeout=WORLD["timeout"])
+    wall = time.perf_counter() - t0
+    if run.returncode or not (out / "world.pkl").exists():
+        fail(f"world of {nproc}: exit {run.returncode}\n"
+             f"{run.stdout[-2000:]}\n{run.stderr[-4000:]}")
+    with open(out / "world.pkl", "rb") as f:
+        got = pickle.load(f)
+    (out / "world.pkl").unlink()
+    got["command_s"] = wall
+    return got
+
+
+def world_check(np, got: dict, want: dict, nproc: int):
+    """Every world answer, with its rounds and rows, bitwise ``want``'s
+    (phase 7's, or this rank's single-process ones); K1 launches equal to
+    rounds on the rank, one K2 launch per sSAX sweep."""
+    for key, *_ in world_calls():
+        a, b = got["answers"]["world", key], want[key]
+        same = all(np.array_equal(a[f], b[f]) for f in
+                   ("ids", "distances", "raw_accesses")) and \
+            a["rounds"] == b["rounds"]
+        c = got["launches"]["world", key]
+        if not same:
+            fail(f"world of {nproc}: {key} differs from the single-process "
+                 f"answer (rounds {a['rounds']} vs {b['rounds']})")
+        if c["euclid"] != a["rounds"] or (key[0] != "sax" and
+                                          c["ssax_dist"] != 1):
+            fail(f"world of {nproc}: {key} made {c['euclid']} K1 launches "
+                 f"in {a['rounds']} rounds and {c['ssax_dist']} K2 "
+                 f"launches")
+        if key[0] == "windows" and a["host_order"]:
+            fail(f"world of {nproc}: {a['host_order']} bytes of window "
+                 f"order on the host")
+
+
+def world_report(got: dict, nproc: int, want_walls: dict, against: str):
+    """Phase 12's lines: wall, per-rank peak memory, per-round collective
+    time, each call's wall beside the single process's."""
+    ranks = got["ranks"]
+    say(f"world of {nproc} (NCCL, {card_label()}): command "
+        f"{got['command_s']:.1f} s; per rank wall "
+        + ", ".join(f"{r['wall']:.1f}" for r in ranks) + " s (corpora "
+        + ", ".join(f"{r['data']:.1f}" for r in ranks) + " s, NCCL "
+        "communicator " + ", ".join(f"{r['comm']:.2f}" for r in ranks)
+        + " s); peak device "
+        "memory per rank " + ", ".join(f"{r['peak'] / 1e9:.2f}"
+                                       for r in ranks) + " GB")
+    for (name, tech), (sec, what) in got["setup"].items():
+        if name == "world":
+            say(f"world of {nproc}: {tech} set-up {sec:.2f} s "
+                + (f"({what} windows)" if tech == "windows" else
+                   f"(ingest, mirror upload of rank 0: {what} bytes)"))
+    for key, *_ in world_calls():
+        a = got["answers"]["world", key]
+        c = got["launches"]["world", key]
+        line = (f"world of {nproc}: {key} == {against} bitwise; rounds "
+                f"{a['rounds']}, K1 launches {c['euclid']}, K2 "
+                f"{c['ssax_dist']}, K3 {c['sax_dist']}; topk wall "
+                f"{got['walls']['world', key]:.3f} s ({against} "
+                f"{want_walls[key]:.3f} s)")
+        if key in got["collectives"]:
+            cs, rounds = got["collectives"][key]
+            line += (f"; collectives {cs['calls']} calls, "
+                     f"{cs['bytes']} bytes, {1e3 * cs['seconds']:.3f} ms "
+                     f"fenced = {1e3 * cs['seconds'] / rounds:.4f} ms per "
+                     f"round")
+        say(line)
+
+
+def world_launcher(root: Path, nproc: int):
+    """The match launcher at its default size under
+    ``torch.distributed.run`` on ``nproc`` ranks beside one process at the
+    same shard count: exit 0, every exact line 8/8, and the world's
+    answer hash equal on every rank and to the single process's."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    base = ["-m", "repro_torch.launch.match", "--device", "cuda"]
+    cmds = {"world": [sys.executable, "-m", "torch.distributed.run",
+                      "--standalone", "--nproc-per-node", str(nproc),
+                      *base, "--distributed"],
+            "single": [sys.executable, *base, "--shards-per-rank",
+                       str(nproc)]}
+    t0 = time.perf_counter()
+    procs = {k: subprocess.Popen(c, cwd=root, env=env, text=True,
+                                 stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE)
+             for k, c in cmds.items()}
+    outs = {}
+    for k, p in procs.items():
+        try:
+            outs[k] = p.communicate(timeout=WORLD["timeout"])
+        finally:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        if p.returncode:
+            fail(f"launcher ({k}, {nproc}): exit {p.returncode}\n"
+                 f"{outs[k][0][-2000:]}\n{outs[k][1][-3000:]}")
+    wall = time.perf_counter() - t0
+    lines = outs["world"][0].splitlines()
+    exact = [ln for ln in lines if "query frontiers == brute force" in ln]
+    hashes = {k: [ln for ln in o.splitlines() if ln.startswith("[answers]")]
+              for k, (o, _) in outs.items()}
+    if not exact or not all(": 8/8 query" in ln for ln in exact) or \
+            not hashes["world"] or not hashes["single"] or \
+            not hashes["world"][-1].endswith("equal on every rank yes") or \
+            hashes["world"][-1].split(";")[0] != hashes["single"][-1]:
+        fail(f"launcher under torch.distributed.run ({nproc}):\n"
+             + "\n".join(lines[-12:]) + "\nsingle: "
+             + "\n".join(hashes["single"]))
+    say(f"launcher under torch.distributed.run, {nproc} rank(s), default "
+        f"size, beside one process at {nproc} shard(s): exit 0 in "
+        f"{wall:.1f} s; {exact[-1]}; {hashes['world'][-1]}")
+
+
+def dist_path(torch, np, root: Path, p7=None) -> dict:
+    """Phase 12: phase 7's calls over a ``torch.distributed`` world of
+    cards, one rank per card (NCCL), then the launcher under
+    ``torch.distributed.run``.  ``p7`` is phase 7's answers; without it
+    (``--dist``) the ranks answer each call alone too.  Returns the
+    kernels' launch counts on the world's rank 0."""
+    import tempfile
+    (root / "build").mkdir(exist_ok=True)
+    n_cards = torch.cuda.device_count()
+    worlds = [1] + ([min(n_cards, 4)] if n_cards >= 2 else [])
+    counts = None
+    with tempfile.TemporaryDirectory(dir=root / "build") as tmp:
+        for nproc in worlds:
+            t0 = time.perf_counter()
+            got = run_world(torch, root, Path(tmp), nproc, p7 is None)
+            if p7 is None:
+                want = {key: got["answers"]["single", key]
+                        for key, *_ in world_calls()}
+                walls = {key: got["walls"]["single", key]
+                         for key, *_ in world_calls()}
+                against = "one process"
+            else:
+                want = {key: answer_of(p7[key][0])
+                        for key, *_ in world_calls()}
+                walls = {key: p7[key][2] for key, *_ in world_calls()}
+                against = "phase 7"
+            world_check(np, got, want, nproc)
+            world_report(got, nproc, walls, against)
+            counts = counts or got["counts"]
+            say(f"phase 12a: world of {nproc} == {against} "
+                f"({time.perf_counter() - t0:.1f} s)")
+            t0 = time.perf_counter()
+            world_launcher(root, nproc)
+            say(f"phase 12b: launcher over a world of {nproc} "
+                f"({time.perf_counter() - t0:.1f} s)")
+    return counts
+
+
 def rounds_check(path: str, calls, exact_fetch: bool):
     """One gathered K1 launch per verification round: every topk call's
     K1 launches must equal its rounds.  On whole series every round is
@@ -3422,6 +3747,9 @@ def main():
     import torch
     if not torch.cuda.is_available():
         fail("no CUDA card is available")
+    if sys.argv[1:2] == ["--dist-rank"]:       # phase 12's rank code
+        dist_rank(root, Path(sys.argv[2]), "--reference" in sys.argv)
+        return
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3435,7 +3763,7 @@ def main():
     say(f"phase 1: kernels built from {_lib.CSRC.relative_to(root)} in "
         f"{_lib.build_seconds():.1f} s -> {_lib.library_path().parent}")
     if sys.argv[1:] in (["--k5"], ["--k2"], ["--split"], ["--serve"],
-                        ["--lm"], ["--train"], ["--shard"]):
+                        ["--lm"], ["--train"], ["--shard"], ["--dist"]):
         if sys.argv[1] == "--k5":
             k5_shapes(torch, ops, ref, dev)
         elif sys.argv[1] == "--k2":
@@ -3456,6 +3784,11 @@ def main():
             t0 = time.perf_counter()
             shard_path(torch, np, dev, root)
             say(f"phase 11: sharded training path exact "
+                f"({time.perf_counter() - t0:.1f} s)")
+        elif sys.argv[1] == "--dist":
+            t0 = time.perf_counter()
+            dist_path(torch, np, root)
+            say(f"phase 12: matching over a world of cards exact "
                 f"({time.perf_counter() - t0:.1f} s)")
         else:
             split_only(torch, np, dev)
@@ -3485,7 +3818,7 @@ def main():
         f"({time.perf_counter() - t0:.1f} s)")
 
     t0 = time.perf_counter()
-    dev_counts = device_path(torch, np, dev, main, sub)
+    dev_counts, p7 = device_path(torch, np, dev, main, sub)
     say(f"phase 7: device-resident path exact "
         f"({time.perf_counter() - t0:.1f} s)")
 
@@ -3512,6 +3845,12 @@ def main():
     say(f"phase 11: sharded training path exact "
         f"({time.perf_counter() - t0:.1f} s)")
 
+    t0 = time.perf_counter()
+    world_counts = dist_path(torch, np, root, p7)
+    del p7
+    say(f"phase 12: matching over a world of cards exact "
+        f"({time.perf_counter() - t0:.1f} s)")
+
     paths = (("main", counts, MAIN_KERNELS),
              ("index", idx_counts, MAIN_KERNELS),
              ("subsequence", sub_counts, tuple(sub_counts)),
@@ -3519,7 +3858,8 @@ def main():
              ("device-resident", dev_counts, MAIN_KERNELS),
              ("service", svc_counts, MAIN_KERNELS),
              ("self-join", sj_counts, SELFJOIN_KERNELS),
-             ("activation retrieval", lm_counts, LM_KERNELS))
+             ("activation retrieval", lm_counts, LM_KERNELS),
+             ("world (rank 0)", world_counts, MAIN_KERNELS))
     for path, c, names in paths:
         missing = [n for n in names if c[n] <= 0]
         if missing:
@@ -3535,7 +3875,7 @@ def main():
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": r["library_ms"]})
-    say(f"phase 12: every kernel launched on its paths; total "
+    say(f"phase 13: every kernel launched on its paths; total "
         f"{time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
 

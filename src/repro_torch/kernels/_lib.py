@@ -16,6 +16,7 @@ zero and counts the launches that went through.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -66,12 +67,23 @@ def library_path() -> Path:
 def build() -> Path:
     """Compile ``csrc/*.cu`` into the shared library unless it exists.
     The compiler's output (``-Xptxas -v``: registers, shared memory,
-    spills) is kept beside the library in ``build.log``."""
+    spills) is kept beside the library in ``build.log``.  Processes that
+    build at once (the ranks of one node) take a file lock beside the
+    build directory: one compiles, the others wait and load its
+    library."""
     so = library_path()
     if so.exists():
         return so
-    nvcc = _nvcc()
     so.parent.mkdir(parents=True, exist_ok=True)
+    with open(so.parent.with_suffix(".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not so.exists():
+            _compile(so)
+    return so
+
+
+def _compile(so: Path) -> None:
+    nvcc = _nvcc()
     tmp = Path(tempfile.mkdtemp(dir=so.parent))
     try:
         cus = [p for p in _sources() if p.suffix == ".cu"]
@@ -100,7 +112,6 @@ def build() -> Path:
         os.replace(tmp / LIB_NAME, so)     # atomic: readers see all or none
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    return so
 
 
 def load() -> ctypes.CDLL:

@@ -55,15 +55,96 @@ orders and verifies the candidates on ``make_mesh(1, --device)``:
 
     PYTHONPATH=src python -m repro_torch.launch.match \
         --selfjoin --n 16 --T 3600 --window 240 --stride 4 --k 3
+
+Started under ``torch.distributed.run`` (``WORLD_SIZE`` > 1, or with
+``--distributed``) each rank joins the process group — NCCL for
+``--device cuda``, on the rank's own card ``cuda:LOCAL_RANK``, gloo for
+``--device cpu`` — and the whole-series, ``--subseq`` and ``--selfjoin``
+paths run over ``make_mesh(R * --shards-per-rank, device,
+group=WORLD)``: each rank holds its own shards, and the collectives
+merge the candidate order and the verification.  Rank 0 prints; every
+rank hashes its answers and exits nonzero unless they equal rank 0's:
+
+    PYTHONPATH=src python -m torch.distributed.run --standalone \
+        --nproc-per-node 2 -m repro_torch.launch.match --device cpu --dryrun
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import hashlib
+import io
+import os
+import sys
 import time
 
 import numpy as np
 import torch
+
+#: the answers this process gave, hashed (held against rank 0's)
+_ANSWERS = hashlib.sha256()
+
+
+def _note(*arrays) -> None:
+    """Add answer arrays to the hash the ranks compare."""
+    for a in arrays:
+        a = np.ascontiguousarray(a)
+        _ANSWERS.update(str((a.dtype, a.shape)).encode())
+        _ANSWERS.update(a.tobytes())
+
+
+def _note_topk(res) -> None:
+    _note(res.indices, res.distances, res.raw_accesses,
+          np.asarray([res.rounds]))
+
+
+def join_world(args):
+    """(group, device): the process group and this rank's device when
+    started under ``torch.distributed.run`` (``WORLD_SIZE`` > 1) or with
+    ``--distributed`` — NCCL on ``cuda:LOCAL_RANK`` (set as the current
+    device before anything is allocated there) or gloo on the CPU —
+    else (None, the device)."""
+    import torch.distributed as dist
+    from repro_torch.core.engine import resolve_device
+    dev = torch.device(args.device)
+    if not (args.distributed or int(os.environ.get("WORLD_SIZE", 1)) > 1):
+        return None, resolve_device(dev)
+    if dev.type == "cuda":
+        dev = resolve_device(torch.device(
+            "cuda", int(os.environ.get("LOCAL_RANK", 0))))
+        torch.cuda.set_device(dev)
+    if not dist.is_initialized():
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo")
+    return dist.group.WORLD, dev
+
+
+def world_mesh(args, group, device):
+    """``make_mesh(R * --shards-per-rank, device, group)``."""
+    from repro_torch.core.distributed import make_mesh
+    import torch.distributed as dist
+    world = 1 if group is None else dist.get_world_size(group)
+    return make_mesh(world * args.shards_per_rank, device, group=group)
+
+
+def check_world(group) -> None:
+    """Print the answers' hash (rank 0); over a world, hold every rank's
+    hash against rank 0's: any rank whose answers differ exits
+    nonzero."""
+    import torch.distributed as dist
+    mine = _ANSWERS.hexdigest()
+    if group is None:
+        print(f"[answers] sha256 {mine[:16]}")
+        return
+    every = [None] * dist.get_world_size(group)
+    dist.all_gather_object(every, mine, group=group)
+    if dist.get_rank(group) == 0:
+        same = all(h == mine for h in every)
+        print(f"[answers] sha256 {mine[:16]}; {len(every)} ranks: equal on "
+              f"every rank {'yes' if same else 'NO'}")
+    if mine != every[0]:
+        raise SystemExit(f"[world] rank {dist.get_rank(group)}: answers "
+                         f"differ from rank 0's")
 
 
 def launcher_technique(technique: str, T: int, L: int, strength: float):
@@ -75,19 +156,19 @@ def launcher_technique(technique: str, T: int, L: int, strength: float):
 def make_engine(technique: str, D: np.ndarray, *, L: int = 10,
                 strength: float = 0.7, batch: int = 256,
                 store: str = "ssd", verify: str = "auto", rep=None,
-                metrics=None, device="cuda"):
+                metrics=None, device="cuda", mesh=None):
     """The sharded engine service (``core.distributed.
-    make_engine_service`` over ``make_mesh(1, device)``) on a
-    ``SymbolicStore`` holding ``D`` — encoded shard by shard unless
-    ``rep``, the representation of ``D``, is given — with the launcher's
-    encoder and the kernel sweep for SAX / sSAX.  Exact top-k orders its
-    candidates on the device; the engine can ``ingest`` / ``append``,
-    and its store can build an index and be saved."""
+    make_engine_service`` over ``mesh``, by default ``make_mesh(1,
+    device)``) on a ``SymbolicStore`` holding ``D`` — encoded shard by
+    shard unless ``rep``, the representation of ``D``, is given — with
+    the launcher's encoder and the kernel sweep for SAX / sSAX.  Exact
+    top-k orders its candidates on the device; the engine can ``ingest``
+    / ``append``, and its store can build an index and be saved."""
     from repro_torch.core.distributed import make_engine_service, make_mesh
     from repro_torch.kernels.ops import make_pairwise
     from repro_torch.store import SymbolicStore
     tech = launcher_technique(technique, D.shape[1], L, strength)
-    mesh = make_mesh(1, device)
+    mesh = mesh if mesh is not None else make_mesh(1, device)
     sym = SymbolicStore(tech, media=store, device=mesh.device)
     if rep is not None:
         sym.append(D, rep=rep)
@@ -222,7 +303,7 @@ def make_subseq_engine(technique: str, D: np.ndarray, *, m: int,
                               mesh=mesh)
 
 
-def run_subseq(args, device):
+def run_subseq(args, device, group=None):
     """Subsequence mode: encode every window of an (n, T) long-series
     corpus, localize snippet queries exactly, check them against a K1
     brute force over every window and the K5 brute-force scan; with
@@ -236,9 +317,9 @@ def run_subseq(args, device):
     if m > args.T:
         raise SystemExit(f"--window {m} longer than --T {args.T}")
     mesh = None
+    if args.verify == "device" or group is not None:
+        mesh = world_mesh(args, group, device)
     if args.verify == "device":
-        from repro_torch.core.distributed import make_mesh
-        mesh = make_mesh(1, device)
         print(f"[subseq] device-resident verification on {device}")
     # the device route's transfer invariants hold where the order stays
     # on the device: suppression masks a host bound matrix
@@ -274,6 +355,7 @@ def run_subseq(args, device):
     t0 = time.perf_counter()
     scan = engine.scan_topk(Q, k=args.k)
     dt_scan = time.perf_counter() - t0
+    _note(res.window_ids, res.distances, res.raw_accesses, scan.window_ids)
     d = window_distances(D, m, s, engine.normalize_queries(Q), device)
     order = np.argsort(d, axis=1, kind="stable")
     nw = view.windows_per_row
@@ -307,6 +389,7 @@ def run_subseq(args, device):
                           use_index=False, explain=args.explain)
         if args.explain:
             _explain(lin.trace, device=gate)
+        _note(lin.window_ids, lin.distances)
         agree = (np.array_equal(res.window_ids, lin.window_ids)
                  and np.array_equal(res.distances, lin.distances))
         print(f"[subseq] index vs linear sweep: bitwise identical "
@@ -324,13 +407,14 @@ def run_subseq(args, device):
           f"{view.n_rows} rows / {view.n} windows")
     o2 = min(100, args.T - m)
     res2 = engine.topk(extra[:1, o2:o2 + m], k=1)
+    _note(res2.window_ids, res2.distances)
     print(f"[subseq] query of appended row -> row {res2.rows[0, 0]} "
           f"start {res2.starts[0, 0]} d={res2.distances[0, 0]:.4f}")
     if args.explain:
         _print_metrics(REGISTRY)
 
 
-def run_selfjoin(args, device):
+def run_selfjoin(args, device, group=None):
     """Self-join mode: compute the corpus matrix profile exactly
     (``profile.SelfJoinEngine``), report the top-k motifs and discords,
     and check the profile bitwise against the brute-force
@@ -352,9 +436,9 @@ def run_selfjoin(args, device):
     tech = make_technique(args.technique, T=m, W=m // args.L, L=args.L,
                           r2_season=args.strength)
     mesh = None
+    if args.verify == "device" or group is not None:
+        mesh = world_mesh(args, group, device)
     if args.verify == "device":
-        from repro_torch.core.distributed import make_mesh
-        mesh = make_mesh(1, device)
         print(f"[selfjoin] device-resident verification on {device}")
 
     rng = np.random.default_rng(17)
@@ -396,6 +480,7 @@ def run_selfjoin(args, device):
     dt_scan = time.perf_counter() - t0
     same = (np.array_equal(prof.distances, oracle.distances)
             and np.array_equal(prof.neighbors, oracle.neighbors))
+    _note(prof.distances, prof.neighbors, prof.raw_accesses)
     print(f"[selfjoin] profile over {prof.n} windows "
           f"(exclusion {prof.exclusion} samples, source {prof.source}): "
           f"bitwise == oracle {'yes' if same else 'NO'}; "
@@ -485,6 +570,11 @@ def main(argv=None):
                     "if a required span is missing")
     ap.add_argument("--dryrun", action="store_true",
                     help="shrink every dimension to a seconds-scale smoke")
+    ap.add_argument("--distributed", action="store_true",
+                    help="join the torch.distributed world even at one "
+                    "rank (implied by WORLD_SIZE > 1)")
+    ap.add_argument("--shards-per-rank", type=int, default=1,
+                    help="shards of the mesh on each rank")
     args = ap.parse_args(argv)
 
     windowed = args.subseq or args.selfjoin
@@ -499,17 +589,38 @@ def main(argv=None):
             args.window = min(args.window, 240)
             args.stride = max(args.stride, 8)
 
-    from repro_torch.core.engine import resolve_device
-    from repro_torch.data.synthetic import season_corpus
-    device = resolve_device(args.device)
     if windowed and (args.ingest or args.snapshot_dir):
         raise SystemExit("--ingest and --snapshot-dir serve "
                          "whole-series matching only")
-    if args.selfjoin:
-        args.k = min(args.k, 4)       # motif / discord count, not top-k
-        return run_selfjoin(args, device)
-    if args.subseq:
-        return run_subseq(args, device)
+    group, device = join_world(args)
+    rank = 0 if group is None else torch.distributed.get_rank(group)
+    if args.explain:                 # the metrics printed are this run's
+        from repro_torch.obs import REGISTRY
+        REGISTRY.reset()
+    global _ANSWERS
+    _ANSWERS = hashlib.sha256()
+    try:
+        # rank 0 prints; the other ranks run the same calls silently
+        with (contextlib.redirect_stdout(io.StringIO()) if rank
+              else contextlib.nullcontext()):
+            if args.selfjoin:
+                args.k = min(args.k, 4)   # motif / discord count
+                run_selfjoin(args, device, group)
+            elif args.subseq:
+                run_subseq(args, device, group)
+            else:
+                run_match(args, device, group)
+        check_world(group)
+    finally:
+        if group is not None:
+            torch.distributed.destroy_process_group()
+    sys.stdout.flush()
+
+
+def run_match(args, device, group=None):
+    """Whole-series mode: exact, indexed and approximate top-k over the
+    corpus, ingest while serving, and the snapshot."""
+    from repro_torch.data.synthetic import season_corpus
     from repro_torch.obs import REGISTRY
     n_ingest = args.ingest * args.ingest_rows
     X = season_corpus(args.n + args.queries + n_ingest, args.T, args.L,
@@ -523,7 +634,8 @@ def main(argv=None):
     engine = make_engine(
         args.technique, D, L=args.L, strength=args.strength,
         batch=args.batch, store=args.store, verify=args.verify,
-        metrics=REGISTRY if args.explain else None, device=device)
+        metrics=REGISTRY if args.explain else None, device=device,
+        mesh=world_mesh(args, group, device))
     store = engine.store                 # SymbolicStore: raw + live rep
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -539,6 +651,7 @@ def main(argv=None):
         dt = time.perf_counter() - t0
         if args.explain:
             _explain(res.trace, device=args.verify == "device")
+        _note_topk(res)
         hits = sum(int(np.array_equal(res.indices[qi], true_i[qi, :k]))
                    for qi in range(args.queries))
         acc = res.raw_accesses.mean()
@@ -564,6 +677,7 @@ def main(argv=None):
         dt = time.perf_counter() - t0
         if args.explain:
             _explain(res_idx.trace, device=args.verify == "device")
+        _note_topk(res_idx)
         agree = (np.array_equal(res_idx.indices, res_lin.indices)
                  and np.array_equal(res_idx.distances, res_lin.distances))
         print(f"[match] index: {store.index.n_nodes} nodes over "
@@ -581,6 +695,7 @@ def main(argv=None):
     dt = time.perf_counter() - t0
     if args.explain:
         _explain(res.trace, device=args.verify == "device")
+    _note_topk(res)
     hit1 = sum(int(res.indices[qi, 0] == true_i[qi, 0])
                for qi in range(args.queries))
     print(f"[match] approx k={args.k}: 1-NN hit {hit1}/{args.queries}; "
@@ -597,6 +712,7 @@ def main(argv=None):
         t0 = time.perf_counter()
         res = engine.topk(Q, k=args.k, exact=False)
         t_q = time.perf_counter() - t0
+        _note_topk(res)
         print(f"[match] ingest {c + 1}/{args.ingest}: +{chunk.shape[0]} "
               f"rows in {t_ing * 1e3:.0f}ms "
               f"({chunk.shape[0] / max(t_ing, 1e-9):.0f} rows/s), corpus "
@@ -609,13 +725,16 @@ def main(argv=None):
             raise SystemExit("[match] the index lost coverage on ingest")
         res_idx = engine.topk(Q, k=args.k, source="index")
         res_lin = engine.topk(Q, k=args.k)
+        _note_topk(res_idx)
+        _note_topk(res_lin)
         agree = (np.array_equal(res_idx.indices, res_lin.indices)
                  and np.array_equal(res_idx.distances, res_lin.distances))
         print(f"[match] index after {args.ingest} ingests: covers "
               f"{store.index.n} rows without rebuild; bitwise==linear "
               f"{'yes' if agree else 'NO'}")
 
-    if args.snapshot_dir:
+    if args.snapshot_dir and (group is None
+                              or torch.distributed.get_rank(group) == 0):
         t0 = time.perf_counter()
         path = store.save(args.snapshot_dir)
         print(f"[match] snapshot: {store.n} rows + rep"

@@ -36,6 +36,7 @@ everything to a seconds-scale smoke.
 from __future__ import annotations
 
 import argparse
+import os
 import threading
 import time
 from dataclasses import dataclass
@@ -247,6 +248,12 @@ def main(argv=None):
     from repro_torch.obs import REGISTRY
     from repro_torch.service import MatchSession
 
+    if int(os.environ.get("WORLD_SIZE", 1)) > 1:
+        raise ValueError(
+            "serve_match does not run over a world of ranks (WORLD_SIZE="
+            f"{os.environ['WORLD_SIZE']}): the service's threads would "
+            "issue collectives that do not line up across ranks; serving "
+            "over a world is the next slice of the port")
     mesh = make_mesh(1, args.device)
     n = args.n
     n_q = args.clients * args.requests

@@ -186,7 +186,10 @@ class SelfJoinEngine:
                 ``pairwise_distance``).
     mesh:       optional ``core.distributed.ShardMesh``: shards the
                 window sweep and orders candidates on its device; with
-                ``verify="device"`` verification stays there too.
+                ``verify="device"`` verification stays there too.  Over
+                a world mesh each rank masks the trivial zone of its own
+                candidates before its sort, and every rank computes the
+                same profile.
     exclusion:  trivial-zone half-width in SAMPLES (two windows of the
                 same source row with |start - start'| < exclusion are
                 trivial matches of each other).  Defaults to

@@ -59,6 +59,26 @@ from repro_torch.service.queue import (SHED_DEADLINE, CoalescingQueue,
 PLANNER_STATE = "planner.json"
 
 
+def refuse_world(engine) -> None:
+    """Raise for an engine over a mesh of more than one rank: the
+    service calls its engines from several threads (the coalescing
+    queue's dispatcher, the replica workers), and collectives issued
+    from several threads do not line up across ranks.  Serving over a
+    world — one dispatcher rank, the others following its dispatches in
+    order — is the next slice of the port."""
+    mesh = getattr(engine, "mesh", None)
+    for sweep in ("sweep", "_sweep"):        # MatchEngine, SelfJoinEngine
+        if mesh is None:
+            mesh = getattr(getattr(engine, sweep, None), "mesh", None)
+    if getattr(mesh, "world", 1) > 1:
+        raise ValueError(
+            f"the matching service does not run over a world mesh "
+            f"({mesh.world} ranks): its threads would issue collectives "
+            f"that do not line up across ranks; serving over a world "
+            f"(one dispatcher rank, the others following its dispatches) "
+            f"is the next slice of the port")
+
+
 class MatchSession:
     """One always-on matching service over one engine (see module doc).
 
@@ -94,6 +114,8 @@ class MatchSession:
                  state_dir: Optional[str] = None):
         self.engine = engine
         self.engines = [engine] + list(replicas or [])
+        for eng in self.engines + [selfjoin]:
+            refuse_world(eng)
         self._subseq = hasattr(engine, "view")
         for i, eng in enumerate(self.engines[1:], start=1):
             shared = (getattr(eng, "view", None) is engine.view

@@ -54,7 +54,10 @@ linear path without suppression orders candidates on the device, so the
 (Q, n_windows) bound matrix never reaches the host; ``verify="device"``
 (which needs the mesh) cuts, z-normalizes and verifies the candidate
 windows on the device, moving no source row to the host, bitwise equal
-to ``verify="host"``.
+to ``verify="host"``.  A world mesh (``make_mesh(S, device, group=)``)
+spreads the mirrors over the ranks, one card each; every rank builds the
+same view and engine and makes the same calls, and the answers are the
+single process's at the same S, bitwise.
 """
 
 from __future__ import annotations

@@ -15,7 +15,10 @@ torch = pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+# the port, the smoke script and the rank functions of the multi-process
+# matching tests, which run without JAX
+FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                      ROOT / "tests" / "dist_match_workers.py"]
 
 
 def _imported(path: Path):
