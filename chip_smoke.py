@@ -10,6 +10,7 @@
     python3 chip_smoke.py --train  # build, then phase 10 alone
     python3 chip_smoke.py --shard  # build, then phase 11 alone
     python3 chip_smoke.py --dist   # build, then phase 12 alone
+    python3 chip_smoke.py --serve-dist  # build, then phase 13 alone
 
 Phases, each failing loudly with a nonzero exit:
 
@@ -225,11 +226,32 @@ Phases, each failing loudly with a nonzero exit:
    exit 0, every exact line 8/8, answer hashes equal on every rank and
    to the single process's.  Where ``torch.cuda.device_count() >= 2``,
    both repeat at ``min(count, 4)`` ranks.
-13. Print each path's launch counts (each kernel of a path > 0) and the
-   ``{"kernels": [...]}`` line with the launches of all nine paths
-   (the training paths launch none of the five kernels; the world's are
+13. Drive the matching service over a ``torch.distributed`` world of
+   cards: (a) ``python -m torch.distributed.run --standalone
+   --nproc-per-node 1 chip_smoke.py --serve-rank`` (NCCL) rebuilds phase
+   8a's set-up from its seeds on ``make_mesh(DEV_SHARDS, group=WORLD)``
+   (phase 3's 1M x 960 corpus in an sSAX store with
+   ``verify="device"``, its index at leaf_fill 64, two replicas) and
+   rank 0 serves it through the fronts of a ``service.world.
+   WorldChannel`` (the other ranks replay its engine calls): phase 8a's
+   waves through ``launch.serve_match.serve_waves`` (wave 1 beside the
+   writer's 16 x 4,096 rows, every exact answer bitwise
+   ``engine.topk(epoch=pin)``; the deadline wave), then 64 queries at k
+   = 8 over the final corpus with every collective fenced, each bitwise
+   a K1 brute force; K1 launches equal to the rounds of every engine
+   call on rank 0; every rank's op hash and epochs equal rank 0's; QPS,
+   latency quantiles, the channel's ops and broadcast seconds,
+   collective ms per dispatch and peak memory printed beside phase
+   8a's.  (b) The serve launcher at its default size under
+   ``torch.distributed.run`` beside one process at the same shard
+   count: exit 0, every exact line full, answer hashes equal.  Where
+   ``torch.cuda.device_count() >= 2``, both repeat at ``min(count, 4)``
+   ranks.
+14. Print each path's launch counts (each kernel of a path > 0) and the
+   ``{"kernels": [...]}`` line with the launches of all ten paths
+   (the training paths launch none of the five kernels; the worlds' are
    rank 0's).
-14. Print the card's name and power limit, then the result line.
+15. Print the card's name and power limit, then the result line.
 
 It imports neither JAX nor the JAX package, needs the repository beside
 it, and exits nonzero without printing a result when there is no card.
@@ -316,6 +338,10 @@ SHARD_MOE_TOL = dict(rtol=2e-2, atol=2e-3)   # grouped vs ungrouped
 # the world phase: phase 7's calls over a torch.distributed world of
 # cards, the window call at k = 8; a rank command's time limit
 WORLD = dict(window_k=8, timeout=600)
+# the service over a world: phase 8a's set-up in a rank, then these
+# queries over the final corpus with no writer; a command's time limit
+SERVE_WORLD = dict(queries=64, k=8)
+SERVE_WORLD_KERNELS = ("euclid", "ssax_dist", "paa")
 SHARD_DRYRUN = (("smollm-135m", "all", "3 ok, 1 documented skips, 0 "
                  "errors"),
                 ("jamba-1.5-large-398b", "long_500k",
@@ -2037,7 +2063,16 @@ def service_path(torch, np, ops, ref, dev, D, store):
                    seed=b)
         for b in (BATCH, NEUTRAL_BATCH))
     del session, engines, neutral
-    return counts, errs
+    return counts, errs, dict(wave_figures(np, run.wave1, run.wall1_s),
+                              peak_gb=peak)
+
+
+def wave_figures(np, reqs, wall_s: float) -> dict:
+    """QPS and latency quantiles (ms) of a served wave."""
+    lat = [r.latency_s for r in reqs if r is not None and r.ok]
+    return {"qps": len(lat) / max(wall_s, 1e-9),
+            "p50_ms": float(np.percentile(lat, 50)) * 1e3,
+            "p99_ms": float(np.percentile(lat, 99)) * 1e3}
 
 
 def selfjoin_path(torch, np, ops, ref, dev, sub_D):
@@ -2201,7 +2236,7 @@ def serving_path(torch, np, ops, ref, dev, D, store, sub):
     Returns the service's and the self-join's launch counts, the
     kernels' max abs errors at their shapes and the FFT times."""
     t0 = time.perf_counter()
-    svc, svc_errs = service_path(torch, np, ops, ref, dev, D, store)
+    svc, svc_errs, fig = service_path(torch, np, ops, ref, dev, D, store)
     say(f"phase 8a: service exact ({time.perf_counter() - t0:.1f} s)")
     t0 = time.perf_counter()
     sj, sj_errs = selfjoin_path(torch, np, ops, ref, dev, sub["D"])
@@ -2212,7 +2247,7 @@ def serving_path(torch, np, ops, ref, dev, D, store, sub):
         f"({time.perf_counter() - t0:.1f} s)")
     errs = {n: max(svc_errs.get(n, 0.0), sj_errs.get(n, 0.0))
             for n in {*svc_errs, *sj_errs}}
-    return svc, sj, errs, fft
+    return svc, sj, errs, fft, fig
 
 
 def serve_only(torch, np, ops, ref, dev):
@@ -3517,10 +3552,12 @@ def dist_rank(root: Path, out: Path, with_reference: bool):
     dist.destroy_process_group()
 
 
-def run_world(torch, root: Path, out: Path, nproc: int,
-              with_reference: bool) -> dict:
-    """Start :func:`dist_rank` on ``nproc`` ranks under
-    ``torch.distributed.run`` and read rank 0's answers."""
+def run_ranks(torch, root: Path, out: Path, nproc: int, args: list,
+              name: str, what: str) -> dict:
+    """Start this script with ``args`` (its rank code: ``--dist-rank`` or
+    ``--serve-rank`` and ``out``) on ``nproc`` ranks under
+    ``torch.distributed.run`` and read what rank 0 pickled into
+    ``out / name``."""
     import gc
     import os
     import pickle
@@ -3528,19 +3565,18 @@ def run_world(torch, root: Path, out: Path, nproc: int,
     torch.cuda.empty_cache()          # the ranks need the card's memory
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
            "--nproc-per-node", str(nproc), str(root / "chip_smoke.py"),
-           "--dist-rank", str(out)] + (["--reference"] if with_reference
-                                       else [])
+           *args]
     env = dict(os.environ, PYTHONPATH=str(root / "src"))
     t0 = time.perf_counter()
     run = subprocess.run(cmd, cwd=root, env=env, capture_output=True,
                          text=True, timeout=WORLD["timeout"])
     wall = time.perf_counter() - t0
-    if run.returncode or not (out / "world.pkl").exists():
-        fail(f"world of {nproc}: exit {run.returncode}\n"
+    if run.returncode or not (out / name).exists():
+        fail(f"{what} of {nproc}: exit {run.returncode}\n"
              f"{run.stdout[-2000:]}\n{run.stderr[-4000:]}")
-    with open(out / "world.pkl", "rb") as f:
+    with open(out / name, "rb") as f:
         got = pickle.load(f)
-    (out / "world.pkl").unlink()
+    (out / name).unlink()
     got["command_s"] = wall
     return got
 
@@ -3602,14 +3638,14 @@ def world_report(got: dict, nproc: int, want_walls: dict, against: str):
         say(line)
 
 
-def world_launcher(root: Path, nproc: int):
-    """The match launcher at its default size under
-    ``torch.distributed.run`` on ``nproc`` ranks beside one process at the
-    same shard count: exit 0, every exact line 8/8, and the world's
-    answer hash equal on every rank and to the single process's."""
+def launcher_pair(root: Path, nproc: int, module: str) -> tuple:
+    """Run launcher ``module`` at its default size on the card under
+    ``torch.distributed.run`` on ``nproc`` ranks and, beside it, in one
+    process at the same shard count; fail unless both exit 0.  Returns
+    each one's stdout lines and the wall seconds."""
     import os
     env = dict(os.environ, PYTHONPATH=str(root / "src"))
-    base = ["-m", "repro_torch.launch.match", "--device", "cuda"]
+    base = ["-m", module, "--device", "cuda"]
     cmds = {"world": [sys.executable, "-m", "torch.distributed.run",
                       "--standalone", "--nproc-per-node", str(nproc),
                       *base, "--distributed"],
@@ -3629,23 +3665,38 @@ def world_launcher(root: Path, nproc: int):
                 p.kill()
                 p.wait()
         if p.returncode:
-            fail(f"launcher ({k}, {nproc}): exit {p.returncode}\n"
+            fail(f"{module} ({k}, {nproc}): exit {p.returncode}\n"
                  f"{outs[k][0][-2000:]}\n{outs[k][1][-3000:]}")
-    wall = time.perf_counter() - t0
-    lines = outs["world"][0].splitlines()
-    exact = [ln for ln in lines if "query frontiers == brute force" in ln]
-    hashes = {k: [ln for ln in o.splitlines() if ln.startswith("[answers]")]
-              for k, (o, _) in outs.items()}
+    return ({k: o.splitlines() for k, (o, _) in outs.items()},
+            time.perf_counter() - t0)
+
+
+def answers_agree(lines: dict) -> bool:
+    """The world's ``[answers]`` line says every rank agreed, and its
+    hash is the single process's."""
+    h = {k: [ln for ln in v if ln.startswith("[answers]")]
+         for k, v in lines.items()}
+    return bool(h["world"] and h["single"]) and \
+        h["world"][-1].endswith("equal on every rank yes") and \
+        h["world"][-1].split(";")[0] == h["single"][-1]
+
+
+def world_launcher(root: Path, nproc: int):
+    """The match launcher at its default size under
+    ``torch.distributed.run`` on ``nproc`` ranks beside one process at the
+    same shard count: exit 0, every exact line 8/8, and the world's
+    answer hash equal on every rank and to the single process's."""
+    lines, wall = launcher_pair(root, nproc, "repro_torch.launch.match")
+    exact = [ln for ln in lines["world"]
+             if "query frontiers == brute force" in ln]
     if not exact or not all(": 8/8 query" in ln for ln in exact) or \
-            not hashes["world"] or not hashes["single"] or \
-            not hashes["world"][-1].endswith("equal on every rank yes") or \
-            hashes["world"][-1].split(";")[0] != hashes["single"][-1]:
+            not answers_agree(lines):
         fail(f"launcher under torch.distributed.run ({nproc}):\n"
-             + "\n".join(lines[-12:]) + "\nsingle: "
-             + "\n".join(hashes["single"]))
+             + "\n".join(lines["world"][-12:]) + "\nsingle: "
+             + "\n".join(lines["single"][-3:]))
     say(f"launcher under torch.distributed.run, {nproc} rank(s), default "
         f"size, beside one process at {nproc} shard(s): exit 0 in "
-        f"{wall:.1f} s; {exact[-1]}; {hashes['world'][-1]}")
+        f"{wall:.1f} s; {exact[-1]}; {lines['world'][-1]}")
 
 
 def dist_path(torch, np, root: Path, p7=None) -> dict:
@@ -3662,7 +3713,10 @@ def dist_path(torch, np, root: Path, p7=None) -> dict:
     with tempfile.TemporaryDirectory(dir=root / "build") as tmp:
         for nproc in worlds:
             t0 = time.perf_counter()
-            got = run_world(torch, root, Path(tmp), nproc, p7 is None)
+            got = run_ranks(torch, root, Path(tmp), nproc,
+                            ["--dist-rank", tmp]
+                            + (["--reference"] if p7 is None else []),
+                            "world.pkl", "world")
             if p7 is None:
                 want = {key: got["answers"]["single", key]
                         for key, *_ in world_calls()}
@@ -3682,6 +3736,270 @@ def dist_path(torch, np, root: Path, p7=None) -> dict:
             t0 = time.perf_counter()
             world_launcher(root, nproc)
             say(f"phase 12b: launcher over a world of {nproc} "
+                f"({time.perf_counter() - t0:.1f} s)")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: the matching service over a torch.distributed world of cards
+# ---------------------------------------------------------------------------
+
+def serve_rank(out: Path):
+    """Phase 13a's rank code, started by ``torch.distributed.run``: NCCL
+    on ``cuda:LOCAL_RANK``; phase 8a's set-up rebuilt from its seeds on a
+    world mesh of ``DEV_SHARDS`` shards (phase 3's 1M x 960 corpus in an
+    sSAX store, its index, two replicas, ``verify="device"``).  Rank 0
+    serves it through the fronts of a ``service.world.WorldChannel`` —
+    calibration, wave 1 beside the writer and the deadline wave through
+    ``launch.serve_match.serve_waves``, then SERVE_WORLD["queries"]
+    queries over the final corpus with every collective fenced, each
+    held to a K1 brute force — while the other ranks replay its engine
+    calls.  Rank 0 pickles what it measured and every broken promise
+    into ``out``."""
+    import os
+    import pickle
+    import threading
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_all = time.perf_counter()
+    dist.init_process_group("nccl", device_id=dev)
+    dist.barrier(device_ids=[dev.index])   # the communicator, before timing
+    from repro_torch.core.distributed import make_engine_service, make_mesh
+    from repro_torch.data.synthetic import season_corpus
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.ops import make_pairwise
+    from repro_torch.launch.match import kernel_bruteforce, launcher_technique
+    from repro_torch.launch.serve_match import report, serve_waves
+    from repro_torch.obs import MetricsRegistry
+    from repro_torch.service import MatchSession, WorldChannel
+    from repro_torch.service.world import ranks_agree
+    c, w = SERVE, SERVE_WORLD
+    rank, world = dist.get_rank(), dist.get_world_size()
+    mesh = make_mesh(DEV_SHARDS, dev, group=dist.group.WORLD)
+    t0 = time.perf_counter()
+    D = season_corpus(N_MAIN + N_QUERIES, T, L, STRENGTH,
+                      per_series_strength=True, seed=1)[N_QUERIES:]
+    n_q = c["clients"] * c["requests"]
+    X = season_corpus(n_q + c["ingest_chunks"] * c["ingest_rows"], T, L,
+                      STRENGTH, per_series_strength=True, seed=12)
+    Q, extra = X[:n_q], X[n_q:]
+    t_data = time.perf_counter() - t0
+    enc = launcher_technique("ssax", T, L, STRENGTH)
+    reg = MetricsRegistry()
+    t0 = time.perf_counter()
+    engines = [make_engine_service(enc, D, mesh, batch_size=BATCH,
+                                   verify="device",
+                                   pairwise=make_pairwise(enc),
+                                   metrics=reg)]
+    store = engines[0].store
+    del D
+    t_index = time.perf_counter()
+    store.build_index(leaf_fill=LEAF_FILL)
+    t_index = time.perf_counter() - t_index
+    engines.append(make_engine_service(enc, None, mesh, store=store,
+                                       batch_size=BATCH, verify="device",
+                                       pairwise=make_pairwise(enc)))
+    for eng in engines:              # each replica uploads its mirrors
+        eng.topk(Q[:1], k=1)
+    torch.cuda.synchronize(dev)
+    t_setup = time.perf_counter() - t0
+    n0 = store.n
+    channel = WorldChannel(engines, dist.group.WORLD)
+    if rank:
+        channel.follow()             # raises unless it equals rank 0
+        dist.destroy_process_group()
+        return
+
+    problems, got = [], {}
+    log = RoundsLog(engines)
+    reset_launch_counts()
+    session = MatchSession(channel.fronts[0], replicas=channel.fronts[1:],
+                           metrics=reg, window_s=c["window_s"],
+                           max_batch=c["max_batch"], max_queue=4 * n_q)
+    try:
+        session.start()
+        cal = session.calibrate(Q[:1], k=c["k"])
+        rows_in = c["ingest_rows"]
+        ingest_s = []
+        chunk_in = [threading.Event() for _ in range(c["ingest_chunks"])]
+
+        def ingest(j):
+            t1 = time.perf_counter()
+            channel.fronts[0].ingest(extra[j * rows_in:(j + 1) * rows_in])
+            ingest_s.append(time.perf_counter() - t1)
+            chunk_in[j].set()
+
+        def writer(stop):            # all of its chunks, stop or not
+            for j in range(1, c["ingest_chunks"]):
+                ingest(j)
+
+        ingest(0)                    # the store's doubling, as phase 8a
+        run = serve_waves(session, channel.fronts[0], Q,
+                          clients=c["clients"], requests=c["requests"],
+                          k=c["k"], deadline_s=c["deadline_s"],
+                          writer=writer,
+                          gate=lambda i: chunk_in[i % c["requests"]].wait(
+                              300), timeout=300.0)
+        problems += run.problems
+        if len({r.epoch.n_rows for r in run.wave1}) < 2:
+            problems.append("wave 1 did not span the ingest")
+        # no writer: the final corpus, every collective fenced
+        qf = Q[:w["queries"]]
+        b0 = reg.snapshot()["counters"]["serve.batches"]
+        mesh.timed, mesh.collectives = True, dict.fromkeys(mesh.collectives,
+                                                           0)
+        t0 = time.perf_counter()
+        final = session.serve(qf, k=w["k"], timeout=300.0)
+        wall_final = time.perf_counter() - t0
+        mesh.timed = False
+        coll = dict(mesh.collectives)
+        dispatches = reg.snapshot()["counters"]["serve.batches"] - b0
+    finally:
+        session.close()
+        every = channel.close()
+    rounds = log.close()
+    counts = launch_counts()
+    t0 = time.perf_counter()
+    want_i, want_d = kernel_bruteforce(qf, store.data, w["k"], dev)
+    t_brute = time.perf_counter() - t0
+    bad = [i for i, r in enumerate(final) if not (
+        r.ok and np.array_equal(r.indices, want_i[i])
+        and np.array_equal(r.distances, want_d[i]))]
+    if bad:
+        problems.append(f"{len(bad)} of {len(final)} final-corpus answers "
+                        f"differ from the K1 brute force over {store.n} "
+                        f"rows, e.g. query {bad[0]}")
+    if counts["euclid"] != rounds:
+        problems.append(f"{counts['euclid']} K1 launches in {rounds} "
+                        f"verification rounds")
+    if not ranks_agree(every):
+        problems.append("a rank's op hash or epochs differ from rank 0's")
+    if store.n != n0 + len(extra) or store.index.n != store.n:
+        problems.append(f"store {store.n} rows, index {store.index.n}, "
+                        f"expected {n0 + len(extra)}")
+    got.update(
+        problems=problems, report=report(run), counts=counts, rounds=rounds,
+        calls=len(log.rounds), cal={t: e["wall_s"] for t, e in cal.items()},
+        wave=wave_figures(np, run.wave1, run.wall1_s),
+        final=dict(wave_figures(np, final, wall_final), n=len(final),
+                   rows=store.n, dispatches=dispatches, coll=coll,
+                   brute_s=t_brute),
+        ingest_s=ingest_s, stats=channel.stats, every=every, world=world,
+        setup=dict(data=t_data, setup=t_setup, index=t_index),
+        peak=torch.cuda.max_memory_allocated(dev),
+        wall=time.perf_counter() - t_all)
+    with open(out / "serve-world.pkl", "wb") as f:
+        pickle.dump(got, f)
+    dist.destroy_process_group()
+
+
+def serve_world_report(got: dict, nproc: int, fig8):
+    """Phase 13a's lines, its figures beside phase 8a's."""
+    if got["problems"]:
+        fail(f"service over a world of {nproc}: "
+             + "; ".join(got["problems"]))
+    f, w, s = got["final"], got["wave"], got["stats"]
+    p8 = (f"phase 8a {fig8['qps']:.1f} QPS, p50 {fig8['p50_ms']:.1f} ms, "
+          f"p99 {fig8['p99_ms']:.1f} ms, peak {fig8['peak_gb']:.2f} GB"
+          if fig8 else "phase 8a not run in this invocation")
+    say(f"service over a world of {nproc} (NCCL, {card_label()}): command "
+        f"{got['command_s']:.1f} s, rank 0 wall {got['wall']:.1f} s "
+        f"(corpora {got['setup']['data']:.1f} s, engines, index and mirrors "
+        f"{got['setup']['setup']:.1f} s of which the index "
+        f"{got['setup']['index']:.1f} s); calibration " + ", ".join(
+            f"{t} {v * 1e3:.1f} ms" for t, v in got["cal"].items()))
+    for line in got["report"]:
+        say(f"  {line}")
+    say(f"world of {nproc}, wave 1: {w['qps']:.1f} QPS, p50 "
+        f"{w['p50_ms']:.1f} ms, p99 {w['p99_ms']:.1f} ms; rank 0 peak "
+        f"device memory {got['peak'] / 1e9:.2f} GB ({p8})")
+    say(f"world of {nproc}, ingest beside wave 1: {len(got['ingest_s'])} "
+        f"chunks of {SERVE['ingest_rows']} rows, "
+        f"{sum(got['ingest_s']):.3f} s through the channel")
+    by = s["by_method"]
+    say(f"world of {nproc}, channel: {s['ops']} ops, {s['keepalives']} "
+        f"keep-alives, broadcast {s['broadcast_s']:.3f} s for {s['bytes']} "
+        f"bytes ({1e3 * s['broadcast_s'] / max(s['ops'], 1):.3f} ms per "
+        f"op), queue wait {s['wait_s']:.3f} s; " + "; ".join(
+            f"{m} {v['ops']} ops {v['broadcast_s']:.3f} s "
+            f"({v['bytes']} bytes)" for m, v in by.items())
+        + "; op hashes and epochs equal on every rank")
+    say(f"world of {nproc}, final corpus ({f['rows']} rows, no writer): "
+        f"{f['n']} queries at k={SERVE_WORLD['k']} == K1 brute force "
+        f"bitwise ({f['brute_s']:.1f} s); {f['qps']:.1f} QPS with every "
+        f"collective fenced, {f['dispatches']:g} dispatches; collectives "
+        f"{f['coll']['calls']} calls, {f['coll']['bytes']} bytes, "
+        f"{1e3 * f['coll']['seconds']:.3f} ms fenced = "
+        f"{1e3 * f['coll']['seconds'] / max(f['dispatches'], 1):.3f} ms "
+        f"per dispatch")
+    say(f"world of {nproc}: K1 launches {got['counts']['euclid']} == "
+        f"verification rounds {got['rounds']} over {got['calls']} engine "
+        f"calls on rank 0; launches {got['counts']}")
+
+
+def serve_world_launcher(root: Path, nproc: int):
+    """``launch/serve_match.py`` at its default size under
+    ``torch.distributed.run`` on ``nproc`` ranks beside one process at the
+    same shard count: exit 0, every exact line full, and the world's
+    answer hash equal to the single process's with every rank's op hash
+    equal to rank 0's."""
+    import re
+    lines, wall = launcher_pair(root, nproc,
+                                "repro_torch.launch.serve_match")
+    exact = {k: [m for ln in v for m in re.findall(
+        r"bit-identity vs direct topk: (\d+)/(\d+)", ln)]
+        for k, v in lines.items()}
+    if not all(exact[k] and all(a == b for a, b in exact[k])
+               for k in exact) or not answers_agree(lines):
+        fail(f"serve launcher under torch.distributed.run ({nproc}):\n"
+             + "\n".join(lines["world"][-12:]) + "\nsingle: "
+             + "\n".join(lines["single"][-6:]))
+    world = [ln for ln in lines["world"] if ln.startswith("[world]")]
+    say(f"serve launcher under torch.distributed.run, {nproc} rank(s), "
+        f"default size, beside one process at {nproc} shard(s): exit 0 in "
+        f"{wall:.1f} s; exact {exact['world'][-1][0]}/"
+        f"{exact['world'][-1][1]}; {lines['world'][-1]}; "
+        + (world[-1] if world else ""))
+    for k in ("world", "single"):
+        say(f"  {k}: " + next(ln for ln in lines[k] if "wave 1:" in ln))
+
+
+def serve_dist_path(torch, np, root: Path, fig8=None) -> dict:
+    """Phase 13: the service over a ``torch.distributed`` world of cards,
+    one rank per card (NCCL), then the serve launcher under
+    ``torch.distributed.run``.  ``fig8`` is phase 8a's wave figures.
+    Returns the kernels' launch counts on the world's rank 0."""
+    import gc
+    import tempfile
+    dev = torch.device("cuda")
+    say(f"phase 13 starts with {torch.cuda.memory_allocated(dev) / 1e9:.2f}"
+        f" GB allocated by this process")
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"  after releasing: {torch.cuda.memory_allocated(dev) / 1e9:.2f} GB"
+        f" allocated, {torch.cuda.memory_reserved(dev) / 1e9:.2f} GB "
+        f"reserved")
+    (root / "build").mkdir(exist_ok=True)
+    n_cards = torch.cuda.device_count()
+    worlds = [1] + ([min(n_cards, 4)] if n_cards >= 2 else [])
+    counts = None
+    with tempfile.TemporaryDirectory(dir=root / "build") as tmp:
+        for nproc in worlds:
+            t0 = time.perf_counter()
+            got = run_ranks(torch, root, Path(tmp), nproc,
+                            ["--serve-rank", tmp], "serve-world.pkl",
+                            "service over a world")
+            serve_world_report(got, nproc, fig8)
+            counts = counts or got["counts"]
+            say(f"phase 13a: service over a world of {nproc} exact "
+                f"({time.perf_counter() - t0:.1f} s)")
+            t0 = time.perf_counter()
+            serve_world_launcher(root, nproc)
+            say(f"phase 13b: serve launcher over a world of {nproc} "
                 f"({time.perf_counter() - t0:.1f} s)")
     return counts
 
@@ -3750,6 +4068,9 @@ def main():
     if sys.argv[1:2] == ["--dist-rank"]:       # phase 12's rank code
         dist_rank(root, Path(sys.argv[2]), "--reference" in sys.argv)
         return
+    if sys.argv[1:2] == ["--serve-rank"]:      # phase 13's rank code
+        serve_rank(Path(sys.argv[2]))
+        return
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3763,7 +4084,8 @@ def main():
     say(f"phase 1: kernels built from {_lib.CSRC.relative_to(root)} in "
         f"{_lib.build_seconds():.1f} s -> {_lib.library_path().parent}")
     if sys.argv[1:] in (["--k5"], ["--k2"], ["--split"], ["--serve"],
-                        ["--lm"], ["--train"], ["--shard"], ["--dist"]):
+                        ["--lm"], ["--train"], ["--shard"], ["--dist"],
+                        ["--serve-dist"]):
         if sys.argv[1] == "--k5":
             k5_shapes(torch, ops, ref, dev)
         elif sys.argv[1] == "--k2":
@@ -3789,6 +4111,11 @@ def main():
             t0 = time.perf_counter()
             dist_path(torch, np, root)
             say(f"phase 12: matching over a world of cards exact "
+                f"({time.perf_counter() - t0:.1f} s)")
+        elif sys.argv[1] == "--serve-dist":
+            t0 = time.perf_counter()
+            serve_dist_path(torch, np, root)
+            say(f"phase 13: the service over a world of cards exact "
                 f"({time.perf_counter() - t0:.1f} s)")
         else:
             split_only(torch, np, dev)
@@ -3823,7 +4150,7 @@ def main():
         f"({time.perf_counter() - t0:.1f} s)")
 
     t0 = time.perf_counter()
-    svc_counts, sj_counts, path_errs, _ = serving_path(
+    svc_counts, sj_counts, path_errs, _, fig8 = serving_path(
         torch, np, ops, ref, dev, main["D"], ssax_store, sub)
     del main, sub, ssax_store
     for name, e in path_errs.items():     # the kernel table's shapes
@@ -3851,6 +4178,11 @@ def main():
     say(f"phase 12: matching over a world of cards exact "
         f"({time.perf_counter() - t0:.1f} s)")
 
+    t0 = time.perf_counter()
+    serve_world_counts = serve_dist_path(torch, np, root, fig8)
+    say(f"phase 13: the service over a world of cards exact "
+        f"({time.perf_counter() - t0:.1f} s)")
+
     paths = (("main", counts, MAIN_KERNELS),
              ("index", idx_counts, MAIN_KERNELS),
              ("subsequence", sub_counts, tuple(sub_counts)),
@@ -3859,7 +4191,9 @@ def main():
              ("service", svc_counts, MAIN_KERNELS),
              ("self-join", sj_counts, SELFJOIN_KERNELS),
              ("activation retrieval", lm_counts, LM_KERNELS),
-             ("world (rank 0)", world_counts, MAIN_KERNELS))
+             ("world (rank 0)", world_counts, MAIN_KERNELS),
+             ("service over a world (rank 0)", serve_world_counts,
+              SERVE_WORLD_KERNELS))
     for path, c, names in paths:
         missing = [n for n in names if c[n] <= 0]
         if missing:
@@ -3875,7 +4209,7 @@ def main():
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": r["library_ms"]})
-    say(f"phase 13: every kernel launched on its paths; total "
+    say(f"phase 14: every kernel launched on its paths; total "
         f"{time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
 

@@ -30,13 +30,30 @@ requests.  The run shows the service contract end to end:
 Runs on the CUDA card by default (``--device cuda``: the K4 encode, the
 K2 / K3 sweep, K1 verification) and raises without one; ``--device
 cpu`` runs every kernel's plain version.  ``--dryrun`` shrinks
-everything to a seconds-scale smoke.
+everything to a seconds-scale smoke.  The last line hashes wave 1's
+answers (``[answers] sha256 ...``).
+
+Started under ``torch.distributed.run`` (``WORLD_SIZE`` > 1, or with
+``--distributed``) each rank joins the process group as
+``launch/match.py`` does (NCCL on ``cuda:LOCAL_RANK``, gloo on the CPU)
+and builds the corpus, the engine, its index and the replicas over
+``make_mesh(R * --shards-per-rank, device, group=WORLD)``.  Rank 0 serves
+through the fronts of a ``service.world.WorldChannel`` and prints; the
+other ranks replay its engine calls in order.  At the end every rank's
+hash of its calls' results is held against rank 0's, and any rank that
+differs exits nonzero:
+
+    PYTHONPATH=src python -m torch.distributed.run --standalone \
+        --nproc-per-node 2 -m repro_torch.launch.serve_match --device cpu \
+        --dryrun
 """
 
 from __future__ import annotations
 
 import argparse
-import os
+import contextlib
+import hashlib
+import io
 import threading
 import time
 from dataclasses import dataclass
@@ -229,6 +246,11 @@ def main(argv=None):
                     help="where encode, sweep and verification run")
     ap.add_argument("--dryrun", action="store_true",
                     help="seconds-scale smoke")
+    ap.add_argument("--distributed", action="store_true",
+                    help="join the torch.distributed world even at one "
+                    "rank (implied by WORLD_SIZE > 1)")
+    ap.add_argument("--shards-per-rank", type=int, default=1,
+                    help="shards of the mesh on each rank")
     args = ap.parse_args(argv)
 
     if args.dryrun:
@@ -240,32 +262,71 @@ def main(argv=None):
         args.batch = min(args.batch, 64)
         args.leaf_fill = min(args.leaf_fill, 16)
 
-    from repro_torch.core.distributed import make_engine_service, make_mesh
+    import torch.distributed as dist
+    from repro_torch.launch.match import join_world, world_mesh
+    from repro_torch.service.world import WorldChannel
+
+    group, device = join_world(args)
+    try:
+        follower = group is not None and dist.get_rank(group) > 0
+        # the followers build the same engines silently and replay
+        with (contextlib.redirect_stdout(io.StringIO()) if follower
+              else contextlib.nullcontext()):
+            engines, data = build(args, world_mesh(args, group, device))
+        if group is None:
+            print(f"[answers] sha256 {serve(args, engines, *data)}")
+        elif follower:
+            WorldChannel(engines, group).follow()
+        else:
+            lead(args, WorldChannel(engines, group), data)
+    finally:
+        if group is not None:
+            dist.destroy_process_group()
+
+
+def lead(args, channel, data):
+    """Rank 0 of a world: serve through the channel's fronts, close it,
+    and hold every rank's op hash and epochs against this rank's."""
+    from repro_torch.service.world import ranks_agree
+    try:
+        digest = serve(args, channel.fronts, *data)
+    finally:
+        every = channel.close()
+    s = channel.stats
+    print(f"[world] {len(every)} ranks: {s['ops']} ops, {s['keepalives']} "
+          f"keep-alives, {s['errors']} errors; broadcast "
+          f"{s['broadcast_s']:.3f}s for {s['bytes']} bytes; queue wait "
+          f"{s['wait_s']:.3f}s; "
+          + "; ".join(f"{m}: {v['ops']} ops, broadcast "
+                      f"{v['broadcast_s']:.3f}s" for m, v in
+                      s["by_method"].items()))
+    same = ranks_agree(every)
+    print(f"[answers] sha256 {digest}; {len(every)} ranks: op hashes and "
+          f"epochs equal on every rank {'yes' if same else 'NO'}")
+    if not same:
+        raise SystemExit("[world] a rank's results differ from rank 0's")
+
+
+def build(args, mesh):
+    """The engine over ``mesh`` with its index and the replicas (every
+    rank builds them alike), and (queries, ingest rows)."""
+    from repro_torch.core.distributed import make_engine_service
     from repro_torch.data.synthetic import season_corpus
     from repro_torch.kernels.ops import make_pairwise
-    from repro_torch.launch.match import (_explain, _print_metrics,
-                                          launcher_technique)
+    from repro_torch.launch.match import launcher_technique
     from repro_torch.obs import REGISTRY
-    from repro_torch.service import MatchSession
 
-    if int(os.environ.get("WORLD_SIZE", 1)) > 1:
-        raise ValueError(
-            "serve_match does not run over a world of ranks (WORLD_SIZE="
-            f"{os.environ['WORLD_SIZE']}): the service's threads would "
-            "issue collectives that do not line up across ranks; serving "
-            "over a world is the next slice of the port")
-    mesh = make_mesh(1, args.device)
     n = args.n
     n_q = args.clients * args.requests
     n_ingest = max(n // 8, 1) if args.ingest_while_serving else 0
     X = season_corpus(n + n_q + n_ingest, args.T, args.L, args.strength,
                       per_series_strength=True, seed=11)
     Q, D = X[:n_q], X[n_q:n_q + n]
-    D_ingest = X[n_q + n:]
     tech = launcher_technique(args.technique, args.T, args.L, args.strength)
 
     print(f"[serve] {args.technique} over {n} x {args.T} on "
-          f"{mesh.device} (verify={args.verify})")
+          f"{mesh.device} ({mesh.n_shards} shards over {mesh.world} "
+          f"rank(s); verify={args.verify})")
     t0 = time.perf_counter()
     engine = make_engine_service(tech, D, mesh, batch_size=args.batch,
                                  media=args.store, verify=args.verify,
@@ -282,8 +343,19 @@ def main(argv=None):
     print(f"[serve] engine + index ready in "
           f"{time.perf_counter() - t0:.2f}s"
           + (f" ({args.replicas} replicas)" if replicas else ""))
+    return [engine, *replicas], (Q, X[n_q + n:])
 
-    session = MatchSession(engine, replicas=replicas, metrics=REGISTRY,
+
+def serve(args, engines, Q, D_ingest) -> str:
+    """Serve both waves through a ``MatchSession`` over ``engines`` (the
+    primary, then its replicas), print the report and return wave 1's
+    answer hash."""
+    from repro_torch.launch.match import _explain, _print_metrics
+    from repro_torch.obs import REGISTRY
+    from repro_torch.service import MatchSession
+
+    engine, n_q = engines[0], len(Q)
+    session = MatchSession(engine, replicas=engines[1:], metrics=REGISTRY,
                            window_s=args.window_ms * 1e-3,
                            max_batch=args.max_batch,
                            max_queue=max(4 * n_q, 256)).start()
@@ -324,6 +396,12 @@ def main(argv=None):
     print("[serve] planner estimates: "
           + ", ".join(f"{t} {e['wall_s'] * 1e3:.1f}ms (n={e['n_obs']})"
                       for t, e in session.planner.snapshot().items()))
+    h = hashlib.sha256()
+    for r in run.wave1:
+        for a in (r.indices, r.distances):
+            h.update(str((a.dtype, a.shape)).encode())
+            h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()[:16]
 
 
 if __name__ == "__main__":

@@ -8,6 +8,9 @@
   tier and its error-bar certificate.
 * :mod:`repro_torch.service.session` — the servable façade wiring store +
   index + sharded device verify + obs tracing together.
+* :mod:`repro_torch.service.world`   — the session over a
+  ``torch.distributed`` world: rank 0 serves through engine fronts, the
+  other ranks replay its engine calls in order.
 """
 
 from repro_torch.service.planner import TIERS, PlanDecision, QueryPlanner
@@ -16,9 +19,11 @@ from repro_torch.service.queue import (SHED_BAD_QUERY, SHED_DEADLINE,
                                  SHED_SHUTDOWN, CoalescingQueue,
                                  MatchRequest)
 from repro_torch.service.session import MatchSession
+from repro_torch.service.world import EngineFront, WorldChannel
 
 __all__ = [
     "TIERS", "PlanDecision", "QueryPlanner", "CoalescingQueue",
     "MatchRequest", "MatchSession", "SHED_QUEUE_FULL", "SHED_DEADLINE",
     "SHED_BAD_QUERY", "SHED_SHUTDOWN", "SHED_ENGINE_ERROR",
+    "EngineFront", "WorldChannel",
 ]

@@ -39,6 +39,12 @@ planner's per-replica EWMAs arbitrate placement and a replica failure
 requeues (never sheds) — see ``service.queue``.  ``state_dir=``
 persists the planner's learned estimates across restarts
 (``save_state`` / seeded on construction).
+
+Over a ``torch.distributed`` world of ranks the session runs on rank 0
+and takes the fronts of ``service.world.WorldChannel`` for its engines:
+every engine call is broadcast as an op that the other ranks replay in
+the same order (see that module).  A raw engine over a world mesh is
+refused (:func:`refuse_world`).
 """
 
 from __future__ import annotations
@@ -54,29 +60,31 @@ import numpy as np
 from repro_torch.service.planner import TIERS, QueryPlanner
 from repro_torch.service.queue import (SHED_DEADLINE, CoalescingQueue,
                                  MatchRequest)
+from repro_torch.service.world import EngineFront, engine_mesh
 
 #: File name of the persisted planner state inside ``state_dir``.
 PLANNER_STATE = "planner.json"
 
 
 def refuse_world(engine) -> None:
-    """Raise for an engine over a mesh of more than one rank: the
+    """Raise for a raw engine over a mesh of more than one rank: the
     service calls its engines from several threads (the coalescing
-    queue's dispatcher, the replica workers), and collectives issued
-    from several threads do not line up across ranks.  Serving over a
-    world — one dispatcher rank, the others following its dispatches in
-    order — is the next slice of the port."""
-    mesh = getattr(engine, "mesh", None)
-    for sweep in ("sweep", "_sweep"):        # MatchEngine, SelfJoinEngine
-        if mesh is None:
-            mesh = getattr(getattr(engine, sweep, None), "mesh", None)
+    queue's dispatcher, the replica workers, a writer, the caller's
+    oracle), and collectives issued from several threads do not line up
+    across ranks.  Over a world the session takes the leader's fronts of
+    ``service.world.WorldChannel`` instead, which put every engine call
+    in one order that the other ranks replay."""
+    if isinstance(engine, EngineFront):
+        return
+    mesh = engine_mesh(engine)
     if getattr(mesh, "world", 1) > 1:
         raise ValueError(
-            f"the matching service does not run over a world mesh "
-            f"({mesh.world} ranks): its threads would issue collectives "
-            f"that do not line up across ranks; serving over a world "
-            f"(one dispatcher rank, the others following its dispatches) "
-            f"is the next slice of the port")
+            f"the matching service does not call a raw engine over a world "
+            f"mesh ({mesh.world} ranks): its threads would issue "
+            f"collectives that do not line up across ranks; serve the "
+            f"engine's front instead (repro_torch.service.world."
+            f"WorldChannel(engines, group).fronts on rank 0, follow() on "
+            f"the others)")
 
 
 class MatchSession:

@@ -316,9 +316,10 @@ def _refused(fn) -> str:
 
 
 def case_service(mesh, tmp):
-    """The service refuses an engine over a world of ranks; a world mesh
-    refuses a CUDA device on a gloo group and a shard count that does
-    not split over the ranks."""
+    """The service refuses a raw engine over a world of ranks (a world
+    serves through ``service.world.WorldChannel``'s fronts); a world
+    mesh refuses a CUDA device on a gloo group and a shard count that
+    does not split over the ranks."""
     import torch.distributed as dist
     from repro_torch.core.distributed import make_mesh
     from repro_torch.service import MatchSession

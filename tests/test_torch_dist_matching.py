@@ -336,12 +336,13 @@ def test_merge_on_tied_bounds_is_the_stable_order(worlds, single, world,
 
 @pytest.mark.parametrize("world,spr", PARAMS, ids=IDS)
 def test_service_and_mesh_refusals(worlds, single, world, spr):
-    """No fallback hides a rank: the service refuses a world mesh, and a
+    """No fallback hides a rank: the service refuses a raw engine over a
+    world mesh (it names the leader's front to serve instead), and a
     world mesh refuses a CUDA device on a gloo group and a shard count
     that does not split over the ranks."""
     got, want = _world_case(worlds, single, world, spr, "service")
     assert got["service"].startswith("refused: ") and \
-        "next slice" in got["service"]
+        "WorldChannel" in got["service"]
     assert want == {"service": "accepted"}
     assert "needs a nccl process group" in got["cuda_on_gloo"]
     assert "not a multiple of the world size" in got["not_a_multiple"]

@@ -17,8 +17,9 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 # the port, the smoke script and the rank functions of the multi-process
 # matching tests, which run without JAX
-FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                      ROOT / "tests" / "dist_match_workers.py"]
+FILES = sorted(PORT.rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "tests" / "dist_match_workers.py",
+    ROOT / "tests" / "dist_service_workers.py"]
 
 
 def _imported(path: Path):
