@@ -104,6 +104,7 @@ import torch.distributed as dist
 
 from repro_torch.core.engine import resolve_device
 from repro_torch.kernels.euclid import euclid_gather
+from repro_torch.obs.trace import span
 
 #: id of the pads a rank adds past its own candidates, and their key
 #: (``_keys`` of (+inf, _PAD_ID)): they sort after every real pair; real
@@ -548,7 +549,10 @@ class DeviceOrderedStream:
         rows = torch.arange(self._pos.shape[0], device=dev)
         cols = torch.as_tensor(np.minimum(self._pos, self._C - 1),
                                device=dev)
-        nxt = self._b[rows, cols].cpu().numpy().astype(np.float64)
+        nxt = self._b[rows, cols]
+        with span("wait"):
+            nxt = nxt.cpu()
+        nxt = nxt.numpy().astype(np.float64)
         # a fully finite row clipped at pos == C would leak a finite
         # bound: the exhaustion guard is load-bearing
         return np.where(self._pos < self._n_fin, nxt, np.inf)
@@ -566,7 +570,10 @@ class DeviceOrderedStream:
         dev = self._i.device
         ids = self._i[torch.as_tensor(aq, device=dev)[:, None],
                       torch.as_tensor(np.minimum(cols, self._C - 1),
-                                      device=dev)].cpu().numpy()
+                                      device=dev)]
+        with span("wait"):
+            ids = ids.cpu()
+        ids = ids.numpy()
         self._pos[aq] += valid.sum(axis=1)
         return np.where(valid, ids, -1).astype(np.int64)
 
@@ -694,8 +701,10 @@ def _order_stream(bounds, ids=None, *, width: int) -> DeviceOrderedStream:
     sb, order = torch.sort(b, dim=1, stable=True)
     si = order if ids is None else torch.as_tensor(
         np.asarray(ids, np.int64), device=b.device)[order]
-    n_fin = torch.isfinite(b).sum(dim=1).cpu().numpy()
-    return DeviceOrderedStream(sb, si, n_fin, width)
+    n_fin = torch.isfinite(b).sum(dim=1)
+    with span("wait"):
+        n_fin = n_fin.cpu()
+    return DeviceOrderedStream(sb, si, n_fin.numpy(), width)
 
 
 def host_order_stream(bounds, ids, device="cuda") -> DeviceOrderedStream:
@@ -731,7 +740,9 @@ def _owned_d2(mesh, rows_flat, q, own, slot) -> np.ndarray:
     d2 = euclid_gather(rows_flat, q, slot)
     d2 = torch.where(own, d2, torch.full_like(d2, float("inf")))
     d2 = mesh.all_reduce(d2, dist.ReduceOp.MIN)
-    return np.sqrt(np.maximum(d2.cpu().numpy(), 0.0))
+    with span("wait"):
+        d2 = d2.cpu()
+    return np.sqrt(np.maximum(d2.numpy(), 0.0))
 
 
 class ShardedRepSweep:

@@ -53,7 +53,6 @@ bit-identical to a numpy brute-force scan.
 from __future__ import annotations
 
 import functools
-import time
 from dataclasses import dataclass
 from typing import Callable, Optional
 
@@ -62,6 +61,7 @@ import torch
 
 from repro_torch.core.matching import RawStore
 from repro_torch.kernels.euclid import euclid_gather
+from repro_torch.obs.trace import maybe_span, span
 
 
 def resolve_device(device) -> torch.device:
@@ -118,7 +118,9 @@ def kernel_verifier(rows: np.ndarray, qs: np.ndarray, gather: np.ndarray,
     rows_d = torch.as_tensor(np.asarray(rows), dtype=torch.float32).to(dev)
     qs_d = torch.as_tensor(np.asarray(qs), dtype=torch.float32).to(dev)
     d2 = euclid_gather(rows_d, qs_d, np.asarray(gather, np.int64))
-    return np.sqrt(np.maximum(d2.cpu().numpy(), 0.0))
+    with span("wait"):
+        d2 = d2.cpu()
+    return np.sqrt(np.maximum(d2.numpy(), 0.0))
 
 
 def make_verifier(mode: str, device="cuda") -> Callable:
@@ -168,8 +170,10 @@ def merge_topk_device(all_d: np.ndarray, all_i: np.ndarray, k: int, *,
     by_id = torch.sort(tie, dim=1, stable=True).indices
     by_d = torch.sort(torch.gather(d, 1, by_id), dim=1, stable=True).indices
     sel = torch.gather(by_id, 1, by_d)[:, :k]
-    return (torch.gather(d, 1, sel).cpu().numpy(),
-            torch.gather(i, 1, sel).cpu().numpy().astype(np.int64))
+    out_d, out_i = torch.gather(d, 1, sel), torch.gather(i, 1, sel)
+    with span("wait"):                  # both copies block
+        out_d, out_i = out_d.cpu(), out_i.cpu()
+    return out_d.numpy(), out_i.numpy().astype(np.int64)
 
 
 # ---------------------------------------------------------------------------
@@ -276,56 +280,62 @@ def topk_verify(queries_raw, repr_dists, store: RawStore, *, k: int = 1,
         trace.add("generated", gen)
 
     while True:
-        # >= (not >): a candidate whose bound ties the k-th best verified
-        # distance may tie it in true distance too and then win on the
-        # smaller dataset index — it must be verified, not pruned
-        if stream is None:
-            nxt = sorted_d[np.arange(q_n), np.minimum(pos, n - 1)]
-            active = (pos < n) & np.isfinite(nxt) & (front_d[:, -1] >= nxt)
-        else:
-            nxt = stream.peek()
-            active = np.isfinite(nxt) & (front_d[:, -1] >= nxt)
-        if not active.any():
-            break
-        aq = np.nonzero(active)[0]
-        t_round = time.perf_counter() if trace is not None else 0.0
-        if stream is None:
-            cand = np.full((len(aq), batch_size), -1, np.int64)
-            for r, qi in enumerate(aq):
-                c = order[qi, pos[qi]:min(pos[qi] + batch_size, n_fin[qi])]
-                cand[r, :len(c)] = c
-            if col_ids is not None:      # column -> dataset row translation
-                cand = np.where(cand >= 0, col_ids[cand], -1)
-        else:                            # global ids straight off device
-            cand = np.asarray(stream.take(aq, batch_size), np.int64)
-        mask = cand >= 0
-        n_round += 1
-        if dist_fn is not None:          # device-resident: no host fetch
-            d = np.asarray(dist_fn(aq, cand))
-        else:
-            ids = np.unique(cand[mask])          # sorted
-            rows = store.fetch(ids)              # one physical fetch/round
-            gather = np.searchsorted(ids, np.where(mask, cand, ids[0]))
-            d = verifier(rows, qs[aq], gather)
-        d = np.where(mask, d, np.inf)
-        if on_verified is not None:
-            for r, qi in enumerate(aq):
-                on_verified(int(qi), cand[r][mask[r]],
-                            np.asarray(d[r][mask[r]], np.float64))
+        # one pass: peek, take, K1, merge; the pass whose peek finds no
+        # active query ends the scan and is no round
+        with span("match.round", timed=trace is not None) as rnd:
+            # >= (not >): a candidate whose bound ties the k-th best
+            # verified distance may tie it in true distance too and then
+            # win on the smaller dataset index — it must be verified, not
+            # pruned
+            if stream is None:
+                nxt = sorted_d[np.arange(q_n), np.minimum(pos, n - 1)]
+                active = ((pos < n) & np.isfinite(nxt)
+                          & (front_d[:, -1] >= nxt))
+            else:
+                nxt = stream.peek()
+                active = np.isfinite(nxt) & (front_d[:, -1] >= nxt)
+            if not active.any():
+                break
+            aq = np.nonzero(active)[0]
+            if stream is None:
+                cand = np.full((len(aq), batch_size), -1, np.int64)
+                for r, qi in enumerate(aq):
+                    c = order[qi, pos[qi]:min(pos[qi] + batch_size,
+                                              n_fin[qi])]
+                    cand[r, :len(c)] = c
+                if col_ids is not None:  # column -> dataset row translation
+                    cand = np.where(cand >= 0, col_ids[cand], -1)
+            else:                        # global ids straight off device
+                cand = np.asarray(stream.take(aq, batch_size), np.int64)
+            mask = cand >= 0
+            n_round += 1
+            if dist_fn is not None:      # device-resident: no host fetch
+                d = np.asarray(dist_fn(aq, cand))
+            else:
+                ids = np.unique(cand[mask])          # sorted
+                rows = store.fetch(ids)              # one physical fetch/round
+                gather = np.searchsorted(ids, np.where(mask, cand, ids[0]))
+                d = verifier(rows, qs[aq], gather)
+            d = np.where(mask, d, np.inf)
+            if on_verified is not None:
+                for r, qi in enumerate(aq):
+                    on_verified(int(qi), cand[r][mask[r]],
+                                np.asarray(d[r][mask[r]], np.float64))
 
-        new_d, new_i = merge(np.concatenate([front_d[aq], d], axis=1),
-                             np.concatenate([front_i[aq], cand], axis=1), k)
-        front_d[aq] = new_d
-        front_i[aq] = new_i
-        n_real = mask.sum(axis=1)
-        acc[aq] += n_real
-        if stream is None:               # a stream advances its own cursor
-            pos[aq] += n_real
+            new_d, new_i = merge(np.concatenate([front_d[aq], d], axis=1),
+                                 np.concatenate([front_i[aq], cand], axis=1),
+                                 k)
+            front_d[aq] = new_d
+            front_i[aq] = new_i
+            n_real = mask.sum(axis=1)
+            acc[aq] += n_real
+            if stream is None:           # a stream advances its own cursor
+                pos[aq] += n_real
         if trace is not None:            # round telemetry: the k-th-best
             trace.record_round(          # threshold after this merge
                 phase="scan", active=int(len(aq)),
                 examined=int(n_real.sum()), kth=front_d[aq, -1].copy(),
-                wall_s=time.perf_counter() - t_round)
+                wall_s=rnd.seconds)
 
     total = store.accesses - start_acc
     n_fetch = store.fetches - start_fetch
@@ -356,7 +366,6 @@ def verify_candidates(queries_raw, cand_idx, store: RawStore, *,
     :func:`topk_verify`.  ``trace`` records this call as one
     verification round labelled ``trace_phase`` ("seed" for the tree
     seed walk, "approx" for the approximate path)."""
-    t0 = time.perf_counter() if trace is not None else 0.0
     qs = np.asarray(queries_raw)
     if qs.ndim == 1:
         qs = qs[None]
@@ -368,28 +377,29 @@ def verify_candidates(queries_raw, cand_idx, store: RawStore, *,
     n = getattr(store, "n", None)
     if n is None:
         n = store.data.shape[0]
-    mask = cand >= 0
-    ids = np.unique(cand[mask])
-    if ids.size == 0:
-        return TopKResult(indices=np.full((q_n, k), -1, np.int64),
-                          distances=np.full((q_n, k), np.inf),
-                          raw_accesses=np.zeros(q_n, np.int64),
-                          pruned_fraction=np.ones(q_n),
-                          store_accesses=0, store_fetches=0,
-                          io_seconds=0.0)
-    start_acc, start_fetch = store.accesses, store.fetches
-    if dist_fn is not None:                      # device-resident path
-        d = np.asarray(dist_fn(np.arange(q_n), cand))
-    else:
-        rows = store.fetch(ids)                  # one batched fetch
-        gather = np.searchsorted(ids, np.where(mask, cand, ids[0]))
-        d = verifier(rows, qs, gather)
-    d = np.where(mask, d, np.inf)
-    if on_verified is not None:
-        for r in range(q_n):
-            on_verified(r, cand[r][mask[r]],
-                        np.asarray(d[r][mask[r]], np.float64))
-    out_d, out_i = merge(d, cand, k)
+    with span("match.round", timed=trace is not None) as rnd:
+        mask = cand >= 0
+        ids = np.unique(cand[mask])
+        if ids.size == 0:
+            return TopKResult(indices=np.full((q_n, k), -1, np.int64),
+                              distances=np.full((q_n, k), np.inf),
+                              raw_accesses=np.zeros(q_n, np.int64),
+                              pruned_fraction=np.ones(q_n),
+                              store_accesses=0, store_fetches=0,
+                              io_seconds=0.0)
+        start_acc, start_fetch = store.accesses, store.fetches
+        if dist_fn is not None:                  # device-resident path
+            d = np.asarray(dist_fn(np.arange(q_n), cand))
+        else:
+            rows = store.fetch(ids)              # one batched fetch
+            gather = np.searchsorted(ids, np.where(mask, cand, ids[0]))
+            d = verifier(rows, qs, gather)
+        d = np.where(mask, d, np.inf)
+        if on_verified is not None:
+            for r in range(q_n):
+                on_verified(r, cand[r][mask[r]],
+                            np.asarray(d[r][mask[r]], np.float64))
+        out_d, out_i = merge(d, cand, k)
     total = store.accesses - start_acc
     n_fetch = store.fetches - start_fetch
     acc = mask.sum(axis=1)
@@ -406,7 +416,7 @@ def verify_candidates(queries_raw, cand_idx, store: RawStore, *,
         trace.record_round(phase=trace_phase, active=q_n,
                            examined=int(acc.sum()),
                            kth=out_d[:, -1].copy(),
-                           wall_s=time.perf_counter() - t0)
+                           wall_s=rnd.seconds)
     return TopKResult(indices=out_i, distances=out_d, raw_accesses=acc,
                       pruned_fraction=1.0 - acc / n,
                       store_accesses=total, store_fetches=n_fetch,
@@ -618,24 +628,47 @@ class MatchEngine:
         (render with ``repro_torch.obs.render_trace``).  A traced call
         launches the same kernels on the same inputs as an untraced one
         and returns the same result.
+
+        Program spans (``match.topk``, ``match.sweep``, ``match.round``
+        and its ``wait``s; ``repro_torch.obs.trace``) go to the calling
+        thread's recorder, which a ``MatchSession`` dispatch sets (or a
+        caller, through ``repro_torch.obs.recording``); the engine sets
+        none, so its own registry keeps the JAX package's metric names.
         """
-        from repro_torch.obs.trace import maybe_span
-        from repro_torch.store.symbolic import epoch_rows
         qs = np.asarray(queries_raw)
         if qs.ndim == 1:
             qs = qs[None]
         if explain and trace is None:
             from repro_torch.obs import Trace
             trace = Trace("match.topk")
+        observing = trace is not None or self.metrics is not None
+        sweep = getattr(self, "sweep", None)
+        hob0 = sweep.host_order_bytes if sweep is not None else 0
+        h2d0 = sweep.h2d_bytes if sweep is not None else 0
+        with span("match.topk", count="match.rounds",
+                  timed=observing) as call:
+            res, total = self._topk(qs, k, exact=exact,
+                                    batch_size=batch_size, expand=expand,
+                                    source=source, trace=trace, epoch=epoch)
+            if call is not None:
+                call.n = res.rounds
+        if observing:
+            self._observe(trace, res, sweep, total, qs.shape[0],
+                          call.seconds, hob0, h2d0)
+        if trace is not None:
+            res.trace = trace
+        return res
+
+    def _topk(self, qs, k, *, exact, batch_size, expand, source, trace,
+              epoch):
+        """The body of :meth:`topk`: (result, rows the call covers)."""
+        from repro_torch.store.symbolic import epoch_rows
         total = getattr(self.store, "n", None)
         if total is None:
             total = self.store.data.shape[0]
         n_e = epoch_rows(epoch)
         if n_e is not None:
             total = min(total, n_e)
-        observing = trace is not None or self.metrics is not None
-        t0 = time.perf_counter() if observing else 0.0
-        sweep = getattr(self, "sweep", None)
         if trace is not None:
             approx_src = bool(getattr(source, "is_approx", False))
             src_name = ("index" if source == "index" else
@@ -648,8 +681,6 @@ class MatchEngine:
                               source=src_name, verify=self.verify_mode)
             if n_e is not None:
                 trace.meta["epoch_rows"] = int(n_e)
-        hob0 = sweep.host_order_bytes if sweep is not None else 0
-        h2d0 = sweep.h2d_bytes if sweep is not None else 0
         dfn = self._make_dist_fn(qs)
         if exact:
             from repro_torch.index.candidates import (
@@ -678,7 +709,7 @@ class MatchEngine:
                 verifier=self.verifier, merge=self.merge, total=total,
                 dist_fn=dfn, trace=trace)
         else:
-            with maybe_span(trace, "order"):
+            with maybe_span(trace, "order"), span("match.sweep"):
                 cand = self.candidates(qs, k * max(expand, 1))
                 if n_e is not None:
                     # epoch filter on the approximate frontier: rows past
@@ -690,12 +721,7 @@ class MatchEngine:
                     qs, cand, self.store, k=k, verifier=self.verifier,
                     merge=self.merge, dist_fn=dfn, trace=trace,
                     trace_phase="approx")
-        if observing:
-            self._observe(trace, res, sweep, total, qs.shape[0],
-                          time.perf_counter() - t0, hob0, h2d0)
-        if trace is not None:
-            res.trace = trace
-        return res
+        return res, total
 
     def topk_approx(self, queries_raw, k: int = 1, *,
                     collect: Optional[int] = None, trace=None,

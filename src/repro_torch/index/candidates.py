@@ -292,7 +292,7 @@ def topk_from_source(queries_raw, source: CandidateSource, store, *,
     """
     from repro_torch.core.engine import (
         TopKResult, numpy_verifier, topk_verify, verify_candidates)
-    from repro_torch.obs.trace import block_until_ready, maybe_span
+    from repro_torch.obs.trace import block_until_ready, maybe_span, span
     verifier = verifier or numpy_verifier
     merge = merge or merge_topk_numpy
 
@@ -308,7 +308,9 @@ def topk_from_source(queries_raw, source: CandidateSource, store, *,
                                      on_verified=on_verified, trace=trace)
 
     with maybe_span(trace, "order") as order_span:
-        cs = source.candidate_bounds(qs, k, verify)
+        # encode, sweep and order, up to the candidate stream being ready
+        with span("match.sweep"):
+            cs = source.candidate_bounds(qs, k, verify)
         if trace is not None and cs.stream is not None:
             # the stream's sort ran on device — fence it so the "order"
             # wall-clock is the kernel time, not the launch time

@@ -21,12 +21,14 @@ Both count their launches under the one counter of ``KERNEL``
 from __future__ import annotations
 
 import ctypes
+from contextlib import nullcontext
 
 import numpy as np
 import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels._lib import CudaKernel, check_cuda, on_cpu, ptr
+from repro_torch.obs.trace import span
 
 KERNEL = CudaKernel(
     "euclid", "repro_euclid",
@@ -106,7 +108,10 @@ def _check_gather(gather, n_rows: int, n_q: int):
         raise ValueError(f"euclid_gather: gather {tuple(gather.shape)} "
                          f"for {n_q} queries")
     if gather.numel():
-        lo, hi = (int(v) for v in torch.aminmax(gather))
+        lo, hi = torch.aminmax(gather)
+        # a CUDA gather's bounds come back in two blocking copies
+        with span("wait") if gather.is_cuda else nullcontext():
+            lo, hi = int(lo), int(hi)
         if lo < 0 or hi >= n_rows:
             raise ValueError(f"euclid_gather: gather spans [{lo}, {hi}], "
                              f"outside the {n_rows} rows")

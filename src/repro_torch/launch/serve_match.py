@@ -20,6 +20,11 @@ requests.  The run shows the service contract end to end:
   back with an error bar instead of being shed.
 * ``--explain`` renders the plan trace of the first request and
   validates it (the device invariants too under ``--verify device``).
+* ``--spans PATH`` keeps the session's last 65,536 program spans
+  (``MatchSession(span_log=)``: submit, queue wait, the dispatcher's
+  coalescing time, each dispatch's engine sweep, rounds and blocking
+  copies) and writes them to PATH as Chrome trace events on
+  the clock ``torch.profiler`` stamps host events with.
 * ``--replicas N`` serves through N engine replicas over the ONE
   shared store (per-replica dispatch workers, planner-EWMA placement);
   each replica keeps its own device mirrors.  ``--ingest-while-serving``
@@ -54,11 +59,15 @@ import argparse
 import contextlib
 import hashlib
 import io
+import json
 import threading
 import time
 from dataclasses import dataclass
 
 import numpy as np
+
+#: Spans the ``--spans`` log keeps (the last ones, of every thread).
+SPAN_LOG = 65536
 
 
 def _percentile(xs, q):
@@ -235,6 +244,9 @@ def main(argv=None):
     ap.add_argument("--verify", default="auto",
                     choices=["auto", "numpy", "kernel", "host", "device"])
     ap.add_argument("--leaf-fill", type=int, default=64)
+    ap.add_argument("--spans", default=None, metavar="PATH",
+                    help="write the session's program spans to PATH as "
+                    "Chrome trace events")
     ap.add_argument("--explain", action="store_true",
                     help="render + validate one dispatch trace")
     ap.add_argument("--replicas", type=int, default=1,
@@ -358,7 +370,8 @@ def serve(args, engines, Q, D_ingest) -> str:
     session = MatchSession(engine, replicas=engines[1:], metrics=REGISTRY,
                            window_s=args.window_ms * 1e-3,
                            max_batch=args.max_batch,
-                           max_queue=max(4 * n_q, 256)).start()
+                           max_queue=max(4 * n_q, 256),
+                           span_log=SPAN_LOG if args.spans else 0).start()
     cal = session.calibrate(Q[:1], k=args.k)
     print("[serve] planner calibration: "
           + ", ".join(f"{t} {e['wall_s'] * 1e3:.1f}ms" for t, e in
@@ -392,6 +405,10 @@ def serve(args, engines, Q, D_ingest) -> str:
         _explain(first.trace, device=args.verify == "device")
 
     session.close()
+    if args.spans:
+        with open(args.spans, "w") as f:
+            json.dump(session.span_log.to_chrome(), f)
+        print(f"[serve] {len(session.spans())} spans -> {args.spans}")
     _print_metrics(REGISTRY)
     print("[serve] planner estimates: "
           + ", ".join(f"{t} {e['wall_s'] * 1e3:.1f}ms (n={e['n_obs']})"

@@ -65,6 +65,9 @@ from typing import Callable, List, Optional
 
 import numpy as np
 
+from repro_torch.obs import trace as obs_trace
+from repro_torch.obs.trace import recording, span
+
 SHED_QUEUE_FULL = "queue_full"
 SHED_DEADLINE = "deadline_expired"
 SHED_BAD_QUERY = "bad_query"
@@ -96,6 +99,11 @@ class MatchRequest:
 
     rid: int = field(default_factory=lambda: next(_RID))
     t_submit: float = 0.0
+    t_call_ns: int = 0                  # ``submit`` called and the request
+    t_submit_ns: int = 0                # admitted, on the spans' clock
+    #   (stamped only when the service records spans)
+    dispatch: Optional[int] = None      # the dispatch that first took it
+    #   (marked only when the service records spans)
     t_deadline: Optional[float] = None
     t_done: float = 0.0
     epoch: Optional[object] = None      # corpus frontier pinned at
@@ -164,6 +172,10 @@ class CoalescingQueue:
     epoch_fn:   optional zero-arg frontier supplier (the store's
                 ``current_epoch``); stamped onto ``req.epoch`` at
                 admission.
+    recorder:   optional ``repro_torch.obs.Recorder``: the dispatcher's
+                spans (``serve.coalesce``, ``serve.dispatch``, each
+                request's ``serve.submit`` and ``serve.queue``), and the
+                thread's recorder for every dispatch.
     """
 
     def __init__(self, dispatch: Callable, *,
@@ -173,7 +185,8 @@ class CoalescingQueue:
                  clock: Callable[[], float] = time.monotonic,
                  n_replicas: int = 1,
                  place: Optional[Callable] = None,
-                 epoch_fn: Optional[Callable] = None):
+                 epoch_fn: Optional[Callable] = None,
+                 recorder=None):
         if max_batch < 1:
             raise ValueError("max_batch must be >= 1")
         if n_replicas < 1:
@@ -192,6 +205,8 @@ class CoalescingQueue:
         self.n_replicas = int(n_replicas)
         self._place = place
         self._epoch_fn = epoch_fn
+        self.recorder = recorder
+        self._dids = itertools.count()
         # replicated-dispatch state (used only when n_replicas > 1):
         # per-replica batch inboxes + busy flags under one condition,
         # the dead set, and one worker thread per replica
@@ -246,6 +261,8 @@ class CoalescingQueue:
                 # exact as of what the caller could observe now, not as
                 # of whenever dispatch happens to run
                 req.epoch = self._epoch_fn()
+            if self.recorder is not None:
+                req.t_submit_ns = obs_trace.clock_ns()
             self._q.append(req)
             self._cond.notify_all()
         if self.metrics is not None:
@@ -323,27 +340,55 @@ class CoalescingQueue:
             self._workers = []
 
     def _loop(self) -> None:
-        while True:
-            with self._cond:
-                while not self._q and not self._stop:
-                    self._cond.wait()
-                if self._stop:
-                    return               # close() drains or sheds the rest
-                # coalescing window, anchored at the first queued request
-                # this batch: wait (briefly) for more traffic to batch
-                t_close = self._clock() + self.window_s
-                while len(self._q) < self.max_batch and not self._stop:
-                    left = t_close - self._clock()
-                    if left <= 0:
-                        break
-                    self._cond.wait(timeout=left)
-                batch = self._q[:self.max_batch]
-                del self._q[:self.max_batch]
-            if batch:
-                if self.n_replicas > 1:
-                    self._route_batch(batch)
-                else:
-                    self._run_batch(batch)
+        with recording(self.recorder):
+            while True:
+                with self._cond:
+                    while not self._q and not self._stop:
+                        self._cond.wait()
+                    if self._stop:
+                        return           # close() drains or sheds the rest
+                    # coalescing window, anchored at the first queued
+                    # request this batch: wait (briefly) for more traffic
+                    with span("serve.coalesce"):
+                        t_close = self._clock() + self.window_s
+                        while (len(self._q) < self.max_batch
+                               and not self._stop):
+                            left = t_close - self._clock()
+                            if left <= 0:
+                                break
+                            self._cond.wait(timeout=left)
+                        batch = self._q[:self.max_batch]
+                        del self._q[:self.max_batch]
+                if batch:
+                    if self.n_replicas > 1:
+                        self._route_batch(batch)
+                    else:
+                        self._run_batch(batch)
+
+    def _took(self, batch: List[MatchRequest], sp) -> None:
+        """Number the dispatch ``sp`` (its open ``serve.dispatch`` span)
+        and close, for each request it is the first to take, the
+        request's ``serve.submit`` (``submit`` called to admission) and
+        ``serve.queue`` (admission to this dispatch) spans."""
+        did = sp.ident = next(self._dids)
+        rec, t_took = self.recorder, sp.start_ns
+        log = rec.log is not None
+        n = call_ns = queue_ns = 0
+        for r in batch:
+            if r.dispatch is None and r.t_submit_ns:
+                r.dispatch = did
+                queue_ns += t_took - r.t_submit_ns
+                if r.t_call_ns:
+                    n += 1
+                    call_ns += r.t_submit_ns - r.t_call_ns
+                if log:
+                    if r.t_call_ns:
+                        rec.record("serve.submit", r.t_call_ns,
+                                   r.t_submit_ns, ident=r.rid)
+                    rec.record("serve.queue", r.t_submit_ns, t_took,
+                               ident=r.rid, meta={"dispatch": did})
+        rec.add("serve.submit", call_ns, count="serve.submit_calls", n=n)
+        rec.add("serve.queue_wait", queue_ns)
 
     def _run_batch(self, batch: List[MatchRequest]) -> None:
         """Unreplicated dispatch (n_replicas == 1): inline on the
@@ -351,17 +396,21 @@ class CoalescingQueue:
         if self.metrics is not None:
             self.metrics.counter("serve.batches").inc()
             self.metrics.counter("serve.batched_requests").inc(len(batch))
-        try:
-            self._dispatch(batch)
-        except Exception as e:  # noqa: BLE001 — resolve, never hang callers
-            for r in batch:
-                if not r.done.is_set():
+        with recording(self.recorder), span("serve.dispatch") as sp:
+            if sp is not None:
+                self._took(batch, sp)
+            try:
+                self._dispatch(batch)
+            except Exception as e:  # noqa: BLE001 — resolve, never hang
+                for r in batch:
+                    if not r.done.is_set():
+                        self.shed(r, SHED_ENGINE_ERROR,
+                                  f"{type(e).__name__}: {e}")
+            for r in batch:      # belt-and-braces: a dispatch must never
+                if not r.done.is_set():  # leave a caller blocked forever
                     self.shed(r, SHED_ENGINE_ERROR,
-                              f"{type(e).__name__}: {e}")
-        for r in batch:          # belt-and-braces: a dispatch must never
-            if not r.done.is_set():      # leave a caller blocked forever
-                self.shed(r, SHED_ENGINE_ERROR,
-                          "dispatch returned without resolving request")
+                              "dispatch returned without resolving "
+                              "request")
 
     # -- replicated dispatch ----------------------------------------------
     def _route_batch(self, batch: List[MatchRequest],
@@ -417,6 +466,13 @@ class CoalescingQueue:
         if self.metrics is not None:
             self.metrics.counter("serve.batches").inc()
             self.metrics.counter("serve.batched_requests").inc(len(batch))
+        with recording(self.recorder), span("serve.dispatch") as sp:
+            if sp is not None:
+                self._took(batch, sp)
+            self._replica_dispatch(batch, rid, attempts)
+
+    def _replica_dispatch(self, batch: List[MatchRequest], rid: int,
+                          attempts: int) -> None:
         try:
             self._dispatch(batch, rid)
         except Exception as e:  # noqa: BLE001 — requeue, then shed

@@ -57,6 +57,8 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 
+from repro_torch.obs import trace as obs_trace
+from repro_torch.obs.trace import Recorder, Trace, span
 from repro_torch.service.planner import TIERS, QueryPlanner
 from repro_torch.service.queue import (SHED_DEADLINE, CoalescingQueue,
                                  MatchRequest)
@@ -110,6 +112,13 @@ class MatchSession:
     state_dir:   directory for persisted planner state; when it holds
                  a ``planner.json`` from a previous ``save_state`` the
                  planner starts from those learned estimates.
+    span_log:    keep the last ``span_log`` program spans, of every thread,
+                 (``repro_torch.obs.trace``: submit, queue wait,
+                 coalescing, dispatch, the engine's sweep, rounds and
+                 waits) in one bounded ``Trace``, read by :meth:`spans`
+                 and exported by ``span_log.to_chrome()``; 0 (default)
+                 keeps none.  The spans' seconds go to the registry's
+                 ``<name>_s`` counters whenever ``metrics`` is set.
     """
 
     def __init__(self, engine, *, selfjoin=None, metrics=None,
@@ -119,7 +128,8 @@ class MatchSession:
                  approx_collect: Optional[int] = None,
                  safety: float = 2.0,
                  replicas: Optional[Sequence] = None,
-                 state_dir: Optional[str] = None):
+                 state_dir: Optional[str] = None,
+                 span_log: int = 0):
         self.engine = engine
         self.engines = [engine] + list(replicas or [])
         for eng in self.engines + [selfjoin]:
@@ -178,13 +188,20 @@ class MatchSession:
         # a frontier (SymbolicStore / WindowView); legacy stores serve
         # unpinned, exactly as before
         epoch_fn = getattr(self._store, "current_epoch", None)
+        if span_log < 0:
+            raise ValueError(f"span_log must be >= 0, got {span_log}")
+        self.span_log = (Trace("serve.spans", maxlen=int(span_log))
+                         if span_log else None)
+        self.recorder = (Recorder(self.metrics, self.span_log)
+                         if self.metrics is not None
+                         or self.span_log is not None else None)
         n_rep = len(self.engines)
         self.queue = CoalescingQueue(
             self._dispatch, validate=self._validate, window_s=window_s,
             max_batch=max_batch, max_queue=max_queue,
             metrics=self.metrics, n_replicas=n_rep,
             place=self._place if n_rep > 1 else None,
-            epoch_fn=epoch_fn)
+            epoch_fn=epoch_fn, recorder=self.recorder)
 
     # -- lifecycle ---------------------------------------------------------
     def start(self) -> "MatchSession":
@@ -251,11 +268,19 @@ class MatchSession:
         """Enqueue one single-query request; returns immediately.  The
         request resolves (served or shed-with-reason) via ``req.wait()``
         — it is never silently dropped."""
+        # the ``serve.submit`` span: from here to admission, closed by
+        # the dispatch that takes the request (this thread takes no lock
+        # of the registry's)
+        t_call = obs_trace.clock_ns() if self.recorder is not None else 0
         req = MatchRequest(query=np.asarray(query, np.float32), k=int(k),
                            deadline_s=deadline_s, tier=tier,
-                           explain=explain)
+                           explain=explain, t_call_ns=t_call)
         self.queue.submit(req)
         return req
+
+    def spans(self) -> list:
+        """The span log's spans, oldest first (empty without a log)."""
+        return [] if self.span_log is None else list(self.span_log.spans)
 
     def submit_selfjoin(self, kind: str = "motifs", *, k: int = 1,
                         deadline_s: Optional[float] = None,
@@ -428,12 +453,11 @@ class MatchSession:
                           .astype(np.float32))
         trace = None
         if any(r.explain for r in reqs):
-            from repro_torch.obs import Trace
             trace = Trace("serve.dispatch")
-        t0 = time.perf_counter()
-        res = self._run_tier(qs, k, tier, trace, epoch=epoch,
-                             replica=replica)
-        wall = time.perf_counter() - t0
+        with span("serve.group", timed=True) as group:
+            res = self._run_tier(qs, k, tier, trace, epoch=epoch,
+                                 replica=replica)
+        wall = group.seconds
         with self._plan_lock:
             self.planner.observe(tier, qs.shape[0], wall, res)
             if len(self.engines) > 1:
@@ -481,12 +505,11 @@ class MatchSession:
         ep_fn = getattr(self._store, "current_epoch", None)
         trace = None
         if any(r.explain for r in reqs):
-            from repro_torch.obs import Trace
             trace = Trace("serve.selfjoin")
         dispatch_epoch = ep_fn() if ep_fn is not None else None
-        t0 = time.perf_counter()
-        prof = eng.profile(trace=trace)
-        wall = time.perf_counter() - t0
+        with span("serve.group", timed=True) as group:
+            prof = eng.profile(trace=trace)
+        wall = group.seconds
         with self._plan_lock:
             self.planner.observe("selfjoin", len(reqs), wall, prof)
         for req in reqs:
